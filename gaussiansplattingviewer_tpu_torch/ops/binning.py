@@ -1,0 +1,271 @@
+"""Tile binning, forward: duplicate splats into (tile, depth)-ordered
+contiguous lists and materialize the attribute-major splat table.
+
+The JAX package bins with a scatter-free tiered pool ladder because TPU
+scatters are slow.  Here the pipeline is exact and sized by the live
+duplicate count:
+
+  1. per-splat tile bbox (``tile_bbox``, same clamps as JAX);
+  2. count -> exclusive scan -> expand (``repeat_interleave``) gives one
+     candidate per (splat, bbox tile); tight culling drops the candidates
+     whose best pixel alpha is below alpha_min (same formulas as JAX);
+  3. ONE ``torch.sort`` over an int64 key (fused 32-bit (tile | depth)
+     key << id_bits) | splat id — the JAX order exactly: tile id high, the
+     top ``depth_bits`` of the positive-f32 depth pattern next, the splat
+     id as the secondary key;
+  4. ``searchsorted`` tile starts, the table budget and ``truncated``,
+     and one row gather into the (16, cap + TABLE_PAD) table.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from gaussiansplattingviewer_tpu_torch.config import RenderConfig, RenderMode
+from gaussiansplattingviewer_tpu_torch.ops.projection import ProjectedSplats
+
+# Row layout of the packed splat table (lane-padded to 16 floats):
+# [cx, cy, conic_a, conic_b, conic_c, r, g, b, opacity, rx, ry, depth,
+#  x0, y0, w, count] — columns 12-15 are never read by the blend.
+TABLE_WIDTH = 16
+COL_CX, COL_CY = 0, 1
+COL_A, COL_B, COL_C = 2, 3, 4
+COL_R, COL_G, COL_BCH = 5, 6, 7
+COL_OPACITY = 8
+COL_RX, COL_RY = 9, 10
+COL_DEPTH = 11
+COL_X0, COL_Y0, COL_W, COL_COUNT = 12, 13, 14, 15
+
+# the blend reads 256-row windows aligned to 128 rows around each segment
+SEGMENT_ALIGN = 128
+KERNEL_CHUNK = 256
+TABLE_PAD = 2 * KERNEL_CHUNK
+
+# float -> int conversions of out-of-range values are undefined in torch;
+# values beyond this bound are clipped to the tile grid anyway
+_INT_SAFE = float(2 ** 30)
+
+
+@dataclasses.dataclass
+class BinnedSplats:
+    """Contiguous, depth-ordered per-tile splat lists.
+
+    table: attribute-major (TABLE_WIDTH, cap + TABLE_PAD) f32; tile t's rows
+      are columns [tile_starts[t], tile_starts[t+1]); cap = min(live
+      duplicates, table budget).
+    tile_starts: (num_tiles + 1,) i32.  tile_counts: (num_tiles,) i32.
+    num_duplicates: () i32 — rows materialized.
+    overflow: () i32 — splats clamped by ``max_tiles_per_gaussian``.
+    truncated: () i32 — duplicates dropped by the table budget.
+    """
+
+    table: torch.Tensor
+    tile_starts: torch.Tensor
+    tile_counts: torch.Tensor
+    num_duplicates: torch.Tensor
+    overflow: torch.Tensor
+    truncated: torch.Tensor
+
+
+def _to_int(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, -_INT_SAFE, _INT_SAFE).to(torch.int32)
+
+
+def tile_bbox(splats: ProjectedSplats, cfg: RenderConfig, ty_lo: int = 0,
+              ty_hi: int | None = None, row_stride: int = 1):
+    """Per-splat tile bbox clamped to the grid, to the static duplicate cap
+    and to the shard's tile-row set {ty_lo + s * row_stride} < ty_hi.
+
+    Returns (x0, y0_local, w, h, count, overflowed), int32 (N,) each.
+    """
+    ts = float(cfg.tile_size)
+    tx_n, ty_n = cfg.tiles_x, cfg.tiles_y
+    if ty_hi is None:
+        ty_hi = ty_n
+    cx, cy = splats.mean2d[:, 0], splats.mean2d[:, 1]
+    rx, ry = splats.radius[:, 0], splats.radius[:, 1]
+
+    x0 = _to_int(torch.floor((cx - rx) / ts))
+    x1 = _to_int(torch.floor((cx + rx) / ts))
+    y0 = _to_int(torch.floor((cy - ry) / ts))
+    y1 = _to_int(torch.floor((cy + ry) / ts))
+
+    # clip to the GLOBAL grid first so the cap below is band-invariant
+    onscreen = (x1 >= 0) & (x0 < tx_n) & (y1 >= 0) & (y0 < ty_n)
+    x0 = torch.clamp(x0, 0, tx_n - 1)
+    x1 = torch.clamp(x1, 0, tx_n - 1)
+    y0 = torch.clamp(y0, 0, ty_n - 1)
+    y1 = torch.clamp(y1, 0, ty_n - 1)
+    w = x1 - x0 + 1
+    h = y1 - y0 + 1
+
+    # optional static cap: shrink the span around the splat's own tile
+    kmax = cfg.max_tiles_per_gaussian if cfg.max_tiles_per_gaussian > 0 \
+        else tx_n * ty_n
+    overflowed = (w * h) > kmax
+    w_c = torch.clamp(w, max=kmax)
+    h_c = torch.minimum(h, torch.clamp(kmax // torch.clamp(w_c, min=1), min=1))
+    ctx = torch.clamp(_to_int(cx / ts), 0, tx_n - 1)
+    cty = torch.clamp(_to_int(cy / ts), 0, ty_n - 1)
+    x0 = torch.where(
+        overflowed, torch.minimum(torch.clamp(ctx - w_c // 2, min=0),
+                                  tx_n - w_c), x0)
+    y0 = torch.where(
+        overflowed, torch.minimum(torch.clamp(cty - h_c // 2, min=0),
+                                  ty_n - h_c), y0)
+    w = torch.where(overflowed, w_c, w)
+    y1 = torch.where(overflowed, y0 + h_c - 1, y1)
+
+    # intersect with the shard's row set
+    if row_stride == 1:
+        y0b = torch.clamp(y0, min=ty_lo)
+        y1b = torch.clamp(y1, max=ty_hi - 1)
+        s0 = y0b - ty_lo
+        h = y1b - y0b + 1
+    else:
+        lo = torch.clamp(y0 - ty_lo, min=0)
+        hi = torch.clamp(y1, max=ty_hi - 1) - ty_lo
+        s0 = (lo + (row_stride - 1)) // row_stride
+        s1 = torch.clamp(hi, min=0) // row_stride
+        s1 = torch.where(hi < 0, torch.full_like(s1, -1), s1)
+        h = s1 - s0 + 1
+    in_band = h > 0
+
+    live = splats.valid & onscreen & in_band
+    count = torch.where(live, w * h, torch.zeros_like(w))
+    return x0, s0, w, torch.clamp(h, min=0), count, overflowed & live
+
+
+def pack_table(splats: ProjectedSplats) -> torch.Tensor:
+    """Per-splat render attributes as (N, TABLE_WIDTH) f32 rows."""
+    n = splats.depth.shape[0]
+    cols = torch.zeros((n, TABLE_WIDTH), dtype=torch.float32,
+                       device=splats.depth.device)
+    cols[:, COL_CX] = splats.mean2d[:, 0]
+    cols[:, COL_CY] = splats.mean2d[:, 1]
+    cols[:, COL_A] = splats.conic[:, 0]
+    cols[:, COL_B] = splats.conic[:, 1]
+    cols[:, COL_C] = splats.conic[:, 2]
+    cols[:, COL_R] = splats.color[:, 0]
+    cols[:, COL_G] = splats.color[:, 1]
+    cols[:, COL_BCH] = splats.color[:, 2]
+    cols[:, COL_OPACITY] = torch.where(
+        splats.valid, splats.opacity, torch.zeros_like(splats.opacity))
+    cols[:, COL_RX] = splats.radius[:, 0]
+    cols[:, COL_RY] = splats.radius[:, 1]
+    cols[:, COL_DEPTH] = splats.depth
+    return cols
+
+
+def _tight_live(splats: ProjectedSplats, cfg: RenderConfig, sid, tx_i, ty_i,
+                row_offset: int, row_stride: int) -> torch.Tensor:
+    """Exact per-tile alpha test of candidates (splat ``sid``, tile
+    (tx_i, ty_i)): keep iff the minimum over the tile's pixel-centre rect of
+    f = A dx^2 + 2B dx dy + C dy^2 is at most 2 (ln op - ln alpha_min), i.e.
+    some pixel can reach alpha_min.  Valid for positive-definite conics,
+    which projection guarantees (it inverts cov2d + 0.3 I)."""
+    log_alpha_min = math.log(cfg.alpha_min)
+    op = torch.where(splats.valid, splats.opacity,
+                     torch.zeros_like(splats.opacity))
+    # log in f64, rounded: the correctly rounded f32 log on any CPU thread
+    # partition (see raster_oracle.fragment_exp)
+    log_op = torch.log(torch.clamp(op, min=1e-20).double()).float()
+    thr = (2.0 * (log_op - log_alpha_min))[sid]
+    ca = torch.clamp(splats.conic[:, 0], min=1e-12)
+    cc = torch.clamp(splats.conic[:, 2], min=1e-12)
+    cb = splats.conic[:, 1]
+    rbc = (cb / cc)[sid]
+    rba = (cb / ca)[sid]
+    va, vb, vc = ca[sid], cb[sid], cc[sid]
+    ts = float(cfg.tile_size)
+    xlo = tx_i.to(torch.float32) * ts + 0.5 - splats.mean2d[sid, 0]
+    gy = row_offset + ty_i * row_stride  # global tile row
+    ylo = gy.to(torch.float32) * ts + 0.5 - splats.mean2d[sid, 1]
+    xhi = xlo + (ts - 1.0)
+    yhi = ylo + (ts - 1.0)
+
+    def edge_x(ex):  # min of f over the edge dx = ex
+        dy = torch.minimum(torch.maximum(-rbc * ex, ylo), yhi)
+        return ex * (va * ex + 2.0 * vb * dy) + vc * dy * dy
+
+    def edge_y(ey):
+        dx = torch.minimum(torch.maximum(-rba * ey, xlo), xhi)
+        return dx * (va * dx + 2.0 * vb * ey) + vc * ey * ey
+
+    f_min = torch.minimum(
+        torch.minimum(edge_x(xlo), edge_x(xhi)),
+        torch.minimum(edge_y(ylo), edge_y(yhi)),
+    )
+    inside = (xlo <= 0.0) & (xhi >= 0.0) & (ylo <= 0.0) & (yhi >= 0.0)
+    f_min = torch.where(inside, torch.zeros_like(f_min), f_min)
+    return f_min <= thr
+
+
+def bin_splats(splats: ProjectedSplats, cfg: RenderConfig,
+               row_offset: int = 0, local_rows: int | None = None,
+               row_stride: int = 1) -> BinnedSplats:
+    """Depth-ordered per-tile lists over the shard's ``local_rows`` global
+    tile rows {row_offset + s * row_stride}; defaults cover the image."""
+    if local_rows is None:
+        local_rows = cfg.tiles_y
+    dev = splats.depth.device
+    n = splats.depth.shape[0]
+    num_tiles = local_rows * cfg.tiles_x
+    ty_hi = (row_offset + local_rows if row_stride == 1
+             else row_offset + (local_rows - 1) * row_stride + 1)
+    x0, y0, w, _, count, overflowed = tile_bbox(
+        splats, cfg, ty_lo=row_offset, ty_hi=ty_hi, row_stride=row_stride)
+
+    # ---- candidates: one per (splat, bbox tile), row-major in the bbox
+    count64 = count.to(torch.int64)
+    sid = torch.repeat_interleave(
+        torch.arange(n, device=dev), count64)
+    first = torch.cumsum(count64, 0) - count64  # exclusive scan
+    kk = torch.arange(sid.shape[0], device=dev) - first[sid]
+    w_s = torch.clamp(w, min=1).to(torch.int64)[sid]
+    tx_i = x0.to(torch.int64)[sid] + kk % w_s
+    ty_i = y0.to(torch.int64)[sid] + kk // w_s
+    if cfg.tight_culling and int(cfg.mode) != int(RenderMode.BILLBOARD):
+        keep = _tight_live(splats, cfg, sid, tx_i, ty_i, row_offset,
+                           row_stride)
+        sid, tx_i, ty_i = sid[keep], tx_i[keep], ty_i[keep]
+    tiles = ty_i * cfg.tiles_x + tx_i
+
+    # ---- fused (tile | depth) key, splat id as the secondary key
+    depth_bits = 32 - int(num_tiles + 1).bit_length()
+    id_bits = max(int(n - 1).bit_length(), 1)
+    if 32 + id_bits > 63:
+        raise ValueError(f"{n} splats do not fit the int64 sort key")
+    dbits = torch.clamp(splats.depth.to(torch.float32), min=0.0).view(
+        torch.int32).to(torch.int64) & 0xFFFFFFFF  # the u32 bit pattern
+    dq = dbits >> (32 - depth_bits)
+    fused = (tiles << depth_bits) | dq[sid]
+    key = (fused << id_bits) | sid
+    key_sorted, _ = torch.sort(key)
+    sid_sorted = key_sorted & ((1 << id_bits) - 1)
+
+    bounds = (torch.arange(num_tiles + 1, device=dev, dtype=torch.int64)
+              << (depth_bits + id_bits))
+    starts = torch.searchsorted(key_sorted, bounds)
+    total = int(key_sorted.shape[0])
+
+    # ---- budgeted table
+    budget = cfg.table_budget_rows or cfg.table_budget_factor * n
+    cap = min(total, budget)
+    starts = torch.clamp(starts, max=cap).to(torch.int32)
+    counts = starts[1:] - starts[:-1]
+    table = torch.zeros((TABLE_WIDTH, cap + TABLE_PAD), dtype=torch.float32,
+                        device=dev)
+    table[:, :cap] = pack_table(splats)[sid_sorted[:cap]].T
+    i32 = dict(dtype=torch.int32, device=dev)
+    return BinnedSplats(
+        table=table,
+        tile_starts=starts,
+        tile_counts=counts,
+        num_duplicates=torch.tensor(cap, **i32),
+        overflow=overflowed.sum().to(torch.int32),
+        truncated=torch.tensor(max(total - budget, 0), **i32),
+    )
