@@ -60,12 +60,13 @@ class RenderConfig:
       tight_culling: drop candidate tiles whose best pixel alpha is below
         alpha_min (changes no output; off in BILLBOARD mode).
       debug: render_with_aux also reports non-finite splat/pixel counts.
+      grad_fold_bf16: the binning gradient fold rounds each table row's
+        gradient to bf16 before summing it onto its splat (the JAX default).
 
     Accepted for compatibility, no effect in the port: dup_factor,
     dense_small_slots, dense_mid_slots, dense_big_slots, pool_*_fraction,
-    pool_ladder, pool_huge_entries (TPU scatter avoidance), grad_fold_bf16
-    and the fused-path budgets (gradients arrive with the training slice).
-    fused_grad=True raises NotImplementedError.
+    pool_ladder, pool_huge_entries (TPU scatter avoidance) and the
+    fused-path budgets.  fused_grad=True raises NotImplementedError.
     """
 
     width: int = 1160

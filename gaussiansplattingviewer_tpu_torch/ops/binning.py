@@ -1,5 +1,6 @@
-"""Tile binning, forward: duplicate splats into (tile, depth)-ordered
-contiguous lists and materialize the attribute-major splat table.
+"""Tile binning: duplicate splats into (tile, depth)-ordered contiguous
+lists and materialize the attribute-major splat table; its gradient folds
+the table's per-row gradients back onto the splats.
 
 The JAX package bins with a scatter-free tiered pool ladder because TPU
 scatters are slow.  Here the pipeline is exact and sized by the live
@@ -15,6 +16,13 @@ duplicate count:
      id as the secondary key;
   4. ``searchsorted`` tile starts, the table budget and ``truncated``,
      and one row gather into the (16, cap + TABLE_PAD) table.
+
+Only the gather is differentiable (``_GatherTableRows``, the counterpart of
+the JAX ``_gather_table_rows`` custom_vjp): its backward keeps the first
+GRAD_WIDTH table columns, rounds them to bf16 when ``cfg.grad_fold_bf16``
+(JAX's semantics), and folds rows onto splats with one ``index_add_`` over
+the sorted splat ids.  The JAX pool ladder, payload sort and tier routing
+are TPU devices and are not ported.  Steps 1-3 run on detached values.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ COL_OPACITY = 8
 COL_RX, COL_RY = 9, 10
 COL_DEPTH = 11
 COL_X0, COL_Y0, COL_W, COL_COUNT = 12, 13, 14, 15
+# columns cx .. opacity: the only ones the blend differentiates
+GRAD_WIDTH = COL_OPACITY + 1
 
 # the blend reads 256-row windows aligned to 128 rows around each segment
 SEGMENT_ALIGN = 128
@@ -140,24 +150,47 @@ def tile_bbox(splats: ProjectedSplats, cfg: RenderConfig, ty_lo: int = 0,
 
 
 def pack_table(splats: ProjectedSplats) -> torch.Tensor:
-    """Per-splat render attributes as (N, TABLE_WIDTH) f32 rows."""
-    n = splats.depth.shape[0]
-    cols = torch.zeros((n, TABLE_WIDTH), dtype=torch.float32,
-                       device=splats.depth.device)
-    cols[:, COL_CX] = splats.mean2d[:, 0]
-    cols[:, COL_CY] = splats.mean2d[:, 1]
-    cols[:, COL_A] = splats.conic[:, 0]
-    cols[:, COL_B] = splats.conic[:, 1]
-    cols[:, COL_C] = splats.conic[:, 2]
-    cols[:, COL_R] = splats.color[:, 0]
-    cols[:, COL_G] = splats.color[:, 1]
-    cols[:, COL_BCH] = splats.color[:, 2]
-    cols[:, COL_OPACITY] = torch.where(
-        splats.valid, splats.opacity, torch.zeros_like(splats.opacity))
-    cols[:, COL_RX] = splats.radius[:, 0]
-    cols[:, COL_RY] = splats.radius[:, 1]
-    cols[:, COL_DEPTH] = splats.depth
-    return cols
+    """Per-splat render attributes as (N, TABLE_WIDTH) f32 rows
+    (differentiable)."""
+    zero = torch.zeros_like(splats.depth)
+    return torch.stack([
+        splats.mean2d[:, 0], splats.mean2d[:, 1],
+        splats.conic[:, 0], splats.conic[:, 1], splats.conic[:, 2],
+        splats.color[:, 0], splats.color[:, 1], splats.color[:, 2],
+        torch.where(splats.valid, splats.opacity, zero),
+        splats.radius[:, 0], splats.radius[:, 1], splats.depth,
+        zero, zero, zero, zero,
+    ], dim=1).to(torch.float32)
+
+
+class _GatherTableRows(torch.autograd.Function):
+    """packed (N, 16) rows -> the (16, cap + TABLE_PAD) table, column j the
+    row sid[j]; the backward is the gradient fold."""
+
+    @staticmethod
+    def forward(ctx, packed, sid, width, fold_bf16):
+        cap = sid.shape[0]
+        table = torch.zeros((TABLE_WIDTH, width), dtype=torch.float32,
+                            device=packed.device)
+        table[:, :cap] = packed[sid].T
+        ctx.save_for_backward(sid)
+        ctx.n = packed.shape[0]
+        ctx.fold_bf16 = fold_bf16
+        return table
+
+    @staticmethod
+    def backward(ctx, g):
+        """The gradient fold: table column j (j < cap) belongs to splat
+        sid[j]; only columns 0..GRAD_WIDTH-1 carry gradient, rounded to
+        bf16 first with ``fold_bf16``, then summed per splat in f32."""
+        (sid,) = ctx.saved_tensors
+        rows = g[:GRAD_WIDTH, : sid.shape[0]].T  # (cap, 9)
+        if ctx.fold_bf16:
+            rows = rows.to(torch.bfloat16).to(torch.float32)
+        g_packed = torch.zeros((ctx.n, TABLE_WIDTH), dtype=torch.float32,
+                               device=g.device)
+        g_packed[:, :GRAD_WIDTH].index_add_(0, sid, rows)
+        return g_packed, None, None, None
 
 
 def _tight_live(splats: ProjectedSplats, cfg: RenderConfig, sid, tx_i, ty_i,
@@ -211,6 +244,10 @@ def bin_splats(splats: ProjectedSplats, cfg: RenderConfig,
     tile rows {row_offset + s * row_stride}; defaults cover the image."""
     if local_rows is None:
         local_rows = cfg.tiles_y
+    packed = pack_table(splats)
+    splats = ProjectedSplats(**{
+        f.name: getattr(splats, f.name).detach()
+        for f in dataclasses.fields(splats)})
     dev = splats.depth.device
     n = splats.depth.shape[0]
     num_tiles = local_rows * cfg.tiles_x
@@ -257,9 +294,8 @@ def bin_splats(splats: ProjectedSplats, cfg: RenderConfig,
     cap = min(total, budget)
     starts = torch.clamp(starts, max=cap).to(torch.int32)
     counts = starts[1:] - starts[:-1]
-    table = torch.zeros((TABLE_WIDTH, cap + TABLE_PAD), dtype=torch.float32,
-                        device=dev)
-    table[:, :cap] = pack_table(splats)[sid_sorted[:cap]].T
+    table = _GatherTableRows.apply(packed, sid_sorted[:cap], cap + TABLE_PAD,
+                                   bool(cfg.grad_fold_bf16))
     i32 = dict(dtype=torch.int32, device=dev)
     return BinnedSplats(
         table=table,

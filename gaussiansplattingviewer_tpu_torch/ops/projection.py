@@ -89,8 +89,10 @@ def compute_cov2d(mean_view, cov3d, view, focal, tan_fovx, tan_fovy):
     limx = 1.3 * tan_fovx
     limy = 1.3 * tan_fovy
     tz_safe = torch.where(torch.abs(tz) < 1e-8, torch.full_like(tz, 1e-8), tz)
-    tx = torch.clamp(tx / tz_safe, -limx, limx) * tz_safe
-    ty = torch.clamp(ty / tz_safe, -limy, limy) * tz_safe
+    # jnp.clip = minimum(maximum(x, lo), hi), with its half gradients at a
+    # tie (torch.clamp passes the whole gradient there)
+    tx = torch.minimum(torch.maximum(tx / tz_safe, -limx), limx) * tz_safe
+    ty = torch.minimum(torch.maximum(ty / tz_safe, -limy), limy) * tz_safe
 
     inv_tz = 1.0 / tz_safe
     inv_tz2 = inv_tz * inv_tz
@@ -180,9 +182,10 @@ def project(scene: GaussianData, view, proj, cam_pos,
         [(ndc[..., 0] + 1.0) * 0.5 * W, (1.0 - ndc[..., 1]) * 0.5 * H],
         dim=-1,
     )
+    zero = torch.zeros_like(cxx)
     radius = torch.stack(
-        [3.0 * torch.sqrt(torch.clamp(cxx, min=0.0)),
-         3.0 * torch.sqrt(torch.clamp(cyy, min=0.0))],
+        [3.0 * torch.sqrt(torch.maximum(cxx, zero)),
+         3.0 * torch.sqrt(torch.maximum(cyy, zero))],
         dim=-1,
     )
 
@@ -191,9 +194,8 @@ def project(scene: GaussianData, view, proj, cam_pos,
     else:
         sh_degree = mode if mode >= 0 else 0  # billboard/ball modes: DC only
         dir = xyz - cam_pos
-        dir = dir / torch.clamp(
-            torch.linalg.norm(dir, dim=-1, keepdim=True), min=1e-12
-        )
+        norm = torch.linalg.norm(dir, dim=-1, keepdim=True)
+        dir = dir / torch.maximum(norm, torch.full_like(norm, 1e-12))
         color = eval_sh_color(scene.sh.to(f32), dir, sh_degree,
                               clamp=cfg.clamp_color)
 

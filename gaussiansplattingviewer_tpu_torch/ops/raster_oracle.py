@@ -41,7 +41,9 @@ def splat_alpha_color(dx, dy, conic, opacity, color, radius,
     if mode == RenderMode.BILLBOARD:
         return in_rect.to(power.dtype), color
     gauss = fragment_exp(power)
-    alpha = torch.clamp(opacity * gauss, max=cfg.alpha_clamp)
+    raw = opacity * gauss
+    # minimum (not clamp): jnp.minimum's half gradient at a tie
+    alpha = torch.minimum(raw, torch.full_like(raw, cfg.alpha_clamp))
     keep = in_rect & (power <= 0.0) & (alpha >= cfg.alpha_min)
     alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
     if mode in (RenderMode.FLAT_BALL, RenderMode.GAUSSIAN_BALL):

@@ -74,5 +74,7 @@ def eval_sh_color(sh: torch.Tensor, dir: torch.Tensor, degree: int,
     coeffs = sh[..., : 3 * n_coeff].reshape(sh.shape[:-1] + (n_coeff, 3))
     color = torch.einsum("...k,...kc->...c", basis, coeffs) + 0.5
     if clamp:
-        color = torch.clamp(color, min=0.0)
+        # maximum (not clamp): at a tie it passes half the gradient, as
+        # jnp.maximum does
+        color = torch.maximum(color, torch.zeros_like(color))
     return color

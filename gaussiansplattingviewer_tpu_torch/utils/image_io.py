@@ -1,5 +1,6 @@
-"""8-bit RGB PNG encoding: PIL where it is installed, else a self-contained
-zlib PNG writer (no filtering)."""
+"""8-bit RGB PNG encoding (PIL where it is installed, else a self-contained
+zlib PNG writer, no filtering) and PNG reading (PIL only, as in the JAX
+package)."""
 
 from __future__ import annotations
 
@@ -69,3 +70,11 @@ def write_rgb8(path, img) -> None:
     """Save float [0,1] or uint8 HxWx3 as an 8-bit RGB PNG."""
     with open(path, "wb") as f:
         f.write(encode_rgb8(img))
+
+
+def read_image(path) -> np.ndarray:
+    """Read a PNG as numpy (uint8 HxWx3 or uint16 HxW)."""
+    if _PILImage is None:
+        raise RuntimeError("PNG reading requires PIL, which is not installed")
+    with _PILImage.open(path) as im:
+        return np.array(im)

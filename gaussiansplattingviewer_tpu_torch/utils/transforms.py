@@ -11,8 +11,14 @@ import numpy as np
 import torch
 
 
-def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
-    """Unit quaternions (..., 4) (w,x,y,z) -> rotation matrices (..., 3, 3)."""
+def quat_to_rotmat(q):
+    """Unit quaternions (..., 4) (w,x,y,z) -> rotation matrices (..., 3, 3);
+    a tensor gives a tensor, a numpy array a numpy array."""
+    if isinstance(q, torch.Tensor):
+        stack = torch.stack
+    else:
+        def stack(xs, dim):
+            return np.stack(xs, axis=dim)
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     r00 = 1 - 2 * (y * y + z * z)
     r01 = 2 * (x * y - w * z)
@@ -24,11 +30,11 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     r21 = 2 * (y * z + w * x)
     r22 = 1 - 2 * (x * x + y * y)
     rows = [
-        torch.stack([r00, r01, r02], dim=-1),
-        torch.stack([r10, r11, r12], dim=-1),
-        torch.stack([r20, r21, r22], dim=-1),
+        stack([r00, r01, r02], -1),
+        stack([r10, r11, r12], -1),
+        stack([r20, r21, r22], -1),
     ]
-    return torch.stack(rows, dim=-2)
+    return stack(rows, -2)
 
 
 def normalize(v, axis=-1, eps: float = 0.0):
@@ -65,6 +71,32 @@ def perspective(fovy: float, aspect: float, near: float, far: float) -> np.ndarr
     P[2, 3] = -(2.0 * far * near) / (far - near)
     P[3, 2] = -1.0
     return P.astype(np.float32)
+
+
+def perspective_from_intrinsics(
+    fx: float, fy: float, cx: float, cy: float,
+    width: int, height: int, near: float = 0.1, far: float = 100.0,
+) -> np.ndarray:
+    """OpenGL-convention projection from pinhole intrinsics (COLMAP
+    cameras.txt fx/fy/cx/cy), for the y-down pixel frame the projection
+    uses: P00 = 2fx/W, P02 = 1 - 2cx/W, P11 = 2fy/H, P12 = 2cy/H - 1.  A
+    centred principal point reduces it to ``perspective``."""
+    W, H = float(width), float(height)
+    P = np.zeros((4, 4))
+    P[0, 0] = 2.0 * fx / W
+    P[0, 2] = 1.0 - 2.0 * cx / W
+    P[1, 1] = 2.0 * fy / H
+    P[1, 2] = 2.0 * cy / H - 1.0
+    P[2, 2] = -(far + near) / (far - near)
+    P[2, 3] = -(2.0 * far * near) / (far - near)
+    P[3, 2] = -1.0
+    return P.astype(np.float32)
+
+
+def translate4(tx: float, ty: float, tz: float) -> np.ndarray:
+    T = np.eye(4, dtype=np.float32)
+    T[0, 3], T[1, 3], T[2, 3] = tx, ty, tz
+    return T
 
 
 def rotate_quat_vec(q, v):

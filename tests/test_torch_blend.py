@@ -108,12 +108,24 @@ def test_blend_unaligned_multi_window_tile():
 
 
 def test_blend_refuses_gradients():
+    """The blend is differentiable w.r.t. the table only: starts and counts
+    get no gradient; an empty frame gives the table a zero one; under
+    no_grad no graph is built (the inference kernel B1's path)."""
     cfg = port_cfg(JaxConfig(width=32, height=32))
     table = torch.zeros((16, 600), requires_grad=True)
     starts = torch.zeros(cfg.num_tiles + 1, dtype=torch.int32)
     counts = torch.zeros(cfg.num_tiles, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="B2/B3"):
-        blend_tiles(cfg, cfg.tiles_y, 1, table, starts, counts, 0)
+    rgb, trans = blend_tiles(cfg, cfg.tiles_y, 1, table, starts, counts, 0)
+    assert rgb.requires_grad and trans.requires_grad
+    (g_table,) = torch.autograd.grad(rgb.sum() + trans.sum(), (table,),
+                                     retain_graph=True)
+    np.testing.assert_array_equal(g_table.numpy(), 0.0)
+    with pytest.raises(RuntimeError, match="does not require grad"):
+        torch.autograd.grad(rgb.sum(), (starts,))
+    with torch.no_grad():
+        rgb, trans = blend_tiles(cfg, cfg.tiles_y, 1, table, starts, counts,
+                                 0)
+    assert not rgb.requires_grad and not trans.requires_grad
 
 
 def test_kernel_wrapper_checks_inputs():

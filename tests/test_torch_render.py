@@ -138,12 +138,20 @@ def test_no_cpu_fallback(monkeypatch):
 
 
 def test_render_refuses_gradients():
+    """render() is differentiable since the training slice: a scene leaf
+    that requires grad gets a finite, nonzero gradient; under no_grad the
+    image carries no graph (the inference path)."""
     scene, _, _ = naive_gaussian()
     scene.xyz.requires_grad_(True)
     cfg = RenderConfig(width=32, height=32)
     view, proj, eye = _front(cfg)
-    with pytest.raises(NotImplementedError, match="B2/B3"):
-        render(scene, view, proj, eye, cfg, device="cpu")
+    with torch.no_grad():
+        assert not render(scene, view, proj, eye, cfg,
+                          device="cpu").requires_grad
+    img = render(scene, view, proj, eye, cfg, device="cpu")
+    (img * img).sum().backward()
+    assert torch.isfinite(scene.xyz.grad).all()
+    assert float(scene.xyz.grad.abs().max()) > 0
 
 
 def test_renderer_interface():
