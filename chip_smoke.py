@@ -9,9 +9,11 @@ Phases, each fatal on failure:
   2. build every CUDA kernel from csrc/ (one nvcc per source, started
      together) and print nvcc's -Xptxas -v report;
   3. every kernel (B1 inference forward, B2 train forward, B3 blend
-     backward) against its plain PyTorch version on the 10k-splat golden
-     scene at 1160x522: all 7 modes, an opaque early-stop scene and an
-     interleaved shard; the rendered images against the stored goldens
+     backward, B4 seeded forward in both variants, B5 compact backward)
+     against its plain PyTorch version on the 10k-splat golden scene at
+     1160x522: all 7 modes, an opaque early-stop scene and an interleaved
+     shard (B4/B5 on the fused path's own pass-1 and pass-2 inputs,
+     prefix_rows 32); the rendered images against the stored goldens
      (tests/goldens);
   4. the serving path at full size: the 1M-splat SH-3 bench scene at
      1920x1080 through render() under no_grad, with CUDA-event stage times
@@ -25,7 +27,15 @@ Phases, each fatal on failure:
   6. the trainer through its CLI (apps.train.main, 3 self-distill steps at
      1920x1080 from the 1M scene written as a PLY);
   7. the serve app on 127.0.0.1 answering /info and three /render requests;
-  8. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+  8. the garden cell, the JAX bench.py garden workload: 5.8M splats, SH-3,
+     1920x1080, config from autotune(probe=True, fused=None) (forced fused
+     if the tuner declines).  5 fused training steps (sum(img^2), SGD)
+     with CUDA-event stage times and launch counts (B2 1, B4 1, B5 2 per
+     step), 5 classic steps on the same scene and pose, fused (K = 0 and
+     the tuned K) and classic again against classic gradients with the
+     f32 fold, 3 served frames (B1 1, B4 1 each), and B4/B5 timed alone
+     against their plain versions on a step's own inputs;
+  9. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
@@ -62,6 +72,7 @@ FLOPS_PER_FRAGMENT = 30
 # + 3 for cx, cy, A, B, C, 3 for rgb, and 9 adds of the pixel reduction
 FLOPS_PER_FRAGMENT_B3 = 73
 BLEND_ATTR_BYTES = 11 * 4  # table rows read per splat row (cx .. ry)
+# B4 does B1/B2's fragment work, B5 B3's (csrc/*.cu: template variants)
 
 GOLDEN_DIR = Path(__file__).resolve().parent / "tests" / "goldens"
 GOLDEN_MODES = ("SH1", "SH2", "SH3", "DEPTH", "BILLBOARD", "FLAT_BALL",
@@ -71,6 +82,12 @@ DEVICE = "cuda"
 # the full cell: the JAX bench.py default scene and resolution
 FULL_SPLATS, FULL_W, FULL_H = 1_000_000, 1920, 1080
 GOLDEN_W, GOLDEN_H, GOLDEN_SPLATS = 1160, 522, 10_000
+# the garden cell: the JAX bench.py garden scene (bench.py:84-93)
+GARDEN_SPLATS, GARDEN_W, GARDEN_H = 5_800_000, 1920, 1080
+# B4/B5 checks on the golden scene: its tile lists hold at most ~100 rows,
+# so the prefix is 32 rows (256 would leave the residual pass empty)
+GOLDEN_FUSED = dict(fused_grad=True, prefix_rows=32,
+                    residual_budget_rows=1 << 20)
 SERVE_W, SERVE_H = 960, 540
 SGD_LR = 1e-12  # bench.py's: keeps the scene statistically unchanged
 TRAIN_STEPS = 5
@@ -106,7 +123,7 @@ class Checks:
     largest absolute difference."""
 
     def __init__(self):
-        self.err = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
+        self.err = {k: 0.0 for k in ("B1", "B2", "B3", "B4", "B5")}
 
     def _record(self, kernel, tag, err, tol):
         self.err[kernel] = max(self.err[kernel], err)
@@ -130,10 +147,13 @@ class Checks:
         self._record(kernel, tag, err, 0.0)
 
     def columns(self, kernel, tag, got, want):
-        """Per table column within 1e-5 * max|plain column|: B3 and its
-        plain version share t_i and alpha bit for bit, and differ only in
-        the order of each row's sum over 256 pixels and of the suffix."""
+        """Per table column within 1e-5 * max|plain column|: B3 (B5) and
+        its plain version share t_i and alpha bit for bit, and differ only
+        in the order of each row's sum over 256 pixels and of the suffix.
+        B5's id row (15) must be equal."""
         worst, err = 0.0, 0.0
+        if kernel == "B5" and not torch.equal(got[15], want[15]):
+            raise AssertionError(f"{tag}: B5 id row differs from plain")
         for c in range(got.shape[0]):
             e = float((got[c] - want[c]).abs().max())
             scale = float(want[c].abs().max())
@@ -190,6 +210,66 @@ def kernels_vs_plain(chk, tag, bs, cfg, row_offset=0, band=()):
     return nproc
 
 
+def fused_vs_plain(chk, tag, splats, cfg, row_offset=0, local_rows=None,
+                   row_stride=1):
+    """B4 (both variants) and B5 (both passes) against their plain
+    versions on the fused path's own inputs: the pass-1 and pass-2 tables
+    of ops/fused.py's forward for these splats, cotangents from a seed.
+    Returns the rows pass 2 blended."""
+    from gaussiansplattingviewer_tpu_torch.ops import binning, fused
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_bwd as b3,
+    )
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_fwd as b1,
+    )
+
+    if local_rows is None:
+        local_rows = cfg.tiles_y
+    pres = binning.bin_splats_presort(splats, cfg, row_offset, local_rows,
+                                      row_stride)
+    f = fused._forward(cfg, local_rows, row_stride, pres.table_src,
+                       pres.rows_sorted, pres.starts_full, row_offset,
+                       train=True)
+    band = (row_offset, cfg, local_rows, row_stride)
+    seeded = (f["table2"], f["rstarts_c"], f["rcounts"], f["trans1"], *band)
+    for train in (False, True):
+        out = b1.tile_raster_fwd_seeded(*seeded, train=train)
+        torch.cuda.synchronize()
+        plain = b1.tile_raster_fwd_seeded_plain(*seeded, train=train)
+        v = "train" if train else "inference"
+        chk.close("B4", f"{tag} B4 {v} rgb", out[0], plain[0])
+        for name, got, want in zip(("T", "ckpt", "nproc"), out[1:],
+                                   plain[1:]):
+            chk.equal("B4", f"{tag} B4 {v} {name}", got, want)
+    rows2 = int(rows_blended(f["rstarts_c"], f["nproc2"]).sum())
+
+    num_tiles = local_rows * cfg.tiles_x
+    g_rgb, g_trans = seeded_cotangents(f["trans"], seed=9)
+    np2, goff2, need2, _ = fused._regions(f["rstarts_c"], f["rcounts"],
+                                          f["nproc2"], 1 << 40, num_tiles)
+    np1, goff1, need1, _ = fused._regions(f["pstarts_c"], f["pcounts"],
+                                          f["nproc1"], 1 << 40, num_tiles)
+    suffix1 = (g_rgb * f["rgb2"]).sum(dim=-1)
+    for name, args in (
+            ("pass 2", (f["table2"], f["rstarts_c"], f["rcounts"], np2,
+                        goff2, f["ckpt2"], row_offset, g_rgb, g_trans,
+                        f["trans"], torch.zeros_like(f["trans"]),
+                        f["trans1"], int(need2) + 256, cfg, local_rows,
+                        row_stride)),
+            ("pass 1", (f["table1"], f["pstarts_c"], f["pcounts"], np1,
+                        goff1, f["ckpt1"], row_offset, g_rgb, g_trans,
+                        f["trans"], suffix1, torch.ones_like(f["trans"]),
+                        int(need1) + 256, cfg, local_rows, row_stride))):
+        g = b3.tile_raster_bwd_fused(*args)
+        torch.cuda.synchronize()
+        chk.columns("B5", f"{tag} B5 {name}", g,
+                    b3.tile_raster_bwd_fused_plain(*args))
+        if name == "pass 1" and not float(g[:9].abs().max()) > 0:
+            raise AssertionError(f"{tag}: B5 {name} gave a zero gradient")
+    return rows2
+
+
 def rows_blended(tile_starts, nproc):
     """Rows each tile blended before its early stop, from the windows it
     processed (B2's count; B3 walks the same rows)."""
@@ -202,6 +282,391 @@ def rows_blended(tile_starts, nproc):
     base = s[:-1] // SEGMENT_ALIGN * SEGMENT_ALIGN
     return (torch.minimum(s[1:], base + nproc.to(torch.int64) * KERNEL_CHUNK)
             - s[:-1]).clamp(min=0)
+
+
+def sgd_step(sc, params, view, proj, eye, cfg, lr=SGD_LR):
+    """One bench.py training step through render_with_aux: loss
+    sum(img^2), backward, SGD.  Returns (loss, aux)."""
+    from gaussiansplattingviewer_tpu_torch.ops.render import render_with_aux
+
+    for p in params:
+        p.grad = None
+    img, aux = render_with_aux(sc, view, proj, eye, cfg)
+    loss = (img * img).sum()
+    loss.backward()
+    with torch.no_grad():
+        for p in params:
+            p.sub_(p.grad, alpha=lr)
+    return loss, aux
+
+
+CLASSIC_STAGES = ("project", "bin", "B2", "image+loss", "B3", "fold",
+                  "projection backward", "update")
+FUSED_STAGES = ("project", "presort", "pass-1 gather + B2",
+                "pass-2 gather + B4", "image+loss", "image bwd", "B5 x2",
+                "fold", "projection backward", "update")
+
+
+def classic_staged_step(sc, params, view, proj, eye, cfg):
+    """A classic training step with CUDA events between the forward
+    stages and, from autograd hooks, when the table's gradient (after B3)
+    and the packed rows' gradient (after the fold) are ready.  Returns the
+    CLASSIC_STAGES times in ms."""
+    from gaussiansplattingviewer_tpu_torch.ops import binning
+    from gaussiansplattingviewer_tpu_torch.ops.blend import blend_tiles
+    from gaussiansplattingviewer_tpu_torch.ops.projection import project
+    from gaussiansplattingviewer_tpu_torch.ops.raster_tiles import (
+        _tiles_to_image,
+    )
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
+    for p in params:
+        p.grad = None
+    ev[0].record()
+    splats = project(sc, view, proj, eye, cfg)
+    ev[1].record()
+    bs = binning.bin_splats(splats, cfg)
+    ev[2].record()
+    rgb, trans = blend_tiles(cfg, cfg.tiles_y, 1, bs.table, bs.tile_starts,
+                             bs.tile_counts, 0)
+    ev[3].record()
+    img, t_img = _tiles_to_image(rgb, trans, cfg)
+    img = img + cfg.background * t_img[..., None]
+    loss = (img * img).sum()
+    ev[4].record()
+    bs.table.register_hook(lambda g: ev[5].record())
+    packed_node = bs.table.grad_fn.next_functions[0][0]
+    packed_node.register_prehook(lambda g: ev[6].record())
+    loss.backward()
+    ev[7].record()
+    with torch.no_grad():
+        for p in params:
+            p.sub_(p.grad, alpha=SGD_LR)
+    ev[8].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(8)]
+
+
+def fused_staged_step(sc, params, view, proj, eye, cfg):
+    """A fused training step with CUDA events between its stages: the
+    kernel wrappers and the fold that ops/fused.py calls are wrapped for
+    the step to record an event after B2, after B4, before the first and
+    after the last B5, and after the fold.  Returns the FUSED_STAGES times
+    in ms."""
+    from gaussiansplattingviewer_tpu_torch.ops import binning
+    from gaussiansplattingviewer_tpu_torch.ops import fused as fz
+    from gaussiansplattingviewer_tpu_torch.ops.projection import project
+    from gaussiansplattingviewer_tpu_torch.ops.raster_tiles import (
+        _tiles_to_image,
+    )
+
+    ev = {}
+
+    def mark(key):
+        ev[key] = torch.cuda.Event(enable_timing=True)
+        ev[key].record()
+
+    def wrap(name, before=None, after=None):
+        orig = getattr(fz, name)
+
+        def run(*a, **k):
+            if before and before not in ev:
+                mark(before)
+            out = orig(*a, **k)
+            mark(after)
+            return out
+        return orig, run
+
+    wrapped = {"tile_raster_fwd_train": wrap("tile_raster_fwd_train",
+                                             after="B2"),
+               "tile_raster_fwd_seeded": wrap("tile_raster_fwd_seeded",
+                                              after="B4"),
+               "tile_raster_bwd_fused": wrap("tile_raster_bwd_fused",
+                                             before="B5 start",
+                                             after="B5 end"),
+               "fold_rows_by_id": wrap("fold_rows_by_id", after="fold")}
+    for p in params:
+        p.grad = None
+    try:
+        for name, (_, run) in wrapped.items():
+            setattr(fz, name, run)
+        mark("start")
+        splats = project(sc, view, proj, eye, cfg)
+        mark("project")
+        pres = binning.bin_splats_presort(splats, cfg)
+        mark("presort")
+        rgb, trans, _ = fz.blend_fused(cfg, cfg.tiles_y, 1, pres.table_src,
+                                       pres.rows_sorted, pres.starts_full, 0)
+        img, t_img = _tiles_to_image(rgb, trans, cfg)
+        img = img + cfg.background * t_img[..., None]
+        loss = (img * img).sum()
+        mark("loss")
+        loss.backward()
+        mark("backward")
+    finally:
+        for name, (orig, _) in wrapped.items():
+            setattr(fz, name, orig)
+    with torch.no_grad():
+        for p in params:
+            p.sub_(p.grad, alpha=SGD_LR)
+    mark("update")
+    torch.cuda.synchronize()
+    order = ("start", "project", "presort", "B2", "B4", "loss", "B5 start",
+             "B5 end", "fold", "backward", "update")
+    return [ev[a].elapsed_time(ev[b]) for a, b in zip(order, order[1:])]
+
+
+def staged_means(fn, names, reps=3):
+    staged = np.array([fn() for _ in range(reps)])
+    return dict(zip(names, staged.mean(axis=0).tolist())), \
+        float(staged.sum(axis=1).mean())
+
+
+def image_cotangents(rgb, trans, cfg):
+    """The cotangents a training step's backward hands the blend:
+    d sum(img^2) / d (rgb tiles, trans tiles)."""
+    from gaussiansplattingviewer_tpu_torch.ops.raster_tiles import (
+        _tiles_to_image,
+    )
+
+    rgb_l = rgb.detach().requires_grad_(True)
+    trans_l = trans.detach().requires_grad_(True)
+    img, t_img = _tiles_to_image(rgb_l, trans_l, cfg)
+    img = img + cfg.background * t_img[..., None]
+    g_rgb, g_trans = torch.autograd.grad((img * img).sum(), (rgb_l, trans_l))
+    return g_rgb.contiguous(), g_trans.contiguous()
+
+
+def grads_of(params):
+    return [p.grad.detach().clone() for p in params]
+
+
+def garden_cell(chk, zero_counts, counts, no_launch):
+    """Phase 8: the JAX bench.py garden workload on the fused path, with
+    the classic path on the same scene and pose beside it."""
+    from gaussiansplattingviewer_tpu_torch.config import RenderConfig
+    from gaussiansplattingviewer_tpu_torch.models import (
+        GaussianData,
+        random_scene,
+    )
+    from gaussiansplattingviewer_tpu_torch.ops import binning
+    from gaussiansplattingviewer_tpu_torch.ops import fused as fz
+    from gaussiansplattingviewer_tpu_torch.ops.autotune import autotune
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_bwd as b3,
+    )
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_fwd as b1,
+    )
+    from gaussiansplattingviewer_tpu_torch.ops.projection import project
+    from gaussiansplattingviewer_tpu_torch.ops.render import render_with_aux
+    from gaussiansplattingviewer_tpu_torch.utils import transforms as tf
+    from gaussiansplattingviewer_tpu_torch.utils.camera import Camera
+
+    dev = torch.device(DEVICE)
+    cam = Camera(h=GARDEN_H, w=GARDEN_W)
+    cam.fovy = 1.0
+    eye = np.array([0.0, 0.0, 11.0], np.float32)
+    view = tf.look_at(eye, [0, 0, 0], [0, -1, 0])
+    proj = cam.get_project_matrix()
+    t0 = time.perf_counter()
+    scene = random_scene(GARDEN_SPLATS, sh_degree=3, seed=0, extent=6.0,
+                         mean_scale=0.012, anisotropy=1.0,
+                         opacity_mix=True).pad_to_multiple(1024).to(dev)
+    log(f"[garden] scene of {len(scene)} splats made in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    cfg0 = RenderConfig(width=GARDEN_W, height=GARDEN_H)
+    cfg = autotune(scene, [view], [proj], [eye], cfg0, probe=True,
+                   fused=None)
+    log(f"[garden] autotune(probe=True, fused=None) in "
+        f"{time.perf_counter() - t0:.2f} s: fused {cfg.fused_grad}, K "
+        f"{cfg.prefix_rows}, prefix_budget_rows {cfg.prefix_budget_rows}, "
+        f"residual_budget_rows {cfg.residual_budget_rows}, "
+        f"grad_budget_rows {cfg.grad_budget_rows}, "
+        f"grad_residual_budget_rows {cfg.grad_residual_budget_rows}, "
+        f"table_budget_rows {cfg.table_budget_rows}")
+    if not cfg.fused_grad:
+        cfg = autotune(scene, [view], [proj], [eye], cfg0, probe=True,
+                       fused=True)
+        log(f"[garden] the tuner declined the fused path; FORCED for this "
+            f"phase: K {cfg.prefix_rows}, budgets {cfg.prefix_budget_rows}"
+            f" / {cfg.residual_budget_rows} / {cfg.grad_budget_rows} / "
+            f"{cfg.grad_residual_budget_rows}")
+    if cfg.prefix_rows == 0:
+        raise AssertionError("garden: the fused config has no residual "
+                             "pass (K = 0), so B4 would never run")
+    classic = cfg.with_(fused_grad=False)
+
+    sc = GaussianData(*(getattr(scene, f).detach().clone()
+                        .requires_grad_(True) for f in FIELDS))
+    params = [getattr(sc, f) for f in FIELDS]
+    del scene
+    out = {}
+    for name, c, staged, stages, want in (
+            ("fused", cfg, fused_staged_step, FUSED_STAGES,
+             {**no_launch, "B2": 1, "B4": 1, "B5": 2}),
+            ("classic", classic, classic_staged_step, CLASSIC_STAGES,
+             {**no_launch, "B2": 1, "B3": 1})):
+        for _ in range(2):  # warm-up
+            sgd_step(sc, params, view, proj, eye, c)
+        torch.cuda.synchronize()
+        stage_ms, stage_sum = staged_means(
+            lambda: staged(sc, params, view, proj, eye, c), stages)
+        log(f"[garden] {name} stages (CUDA events, mean of 3): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in stage_ms.items())
+            + f"; sum {stage_sum:.3f} ms")
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for _ in range(TRAIN_STEPS):
+            ms, (loss, aux) = host_ms(
+                lambda: sgd_step(sc, params, view, proj, eye, c))
+            step_ms.append(ms)
+        got = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms_step = float(np.mean(step_ms))
+        diag = {k: float(aux[k]) for k in ("num_duplicates", "truncated",
+                                           "grad_rows_needed",
+                                           "grad_rows_dropped") if k in aux}
+        log(f"[garden] {name} {GARDEN_SPLATS / 1e6:.1f}M SH3 "
+            f"{GARDEN_W}x{GARDEN_H} steps "
+            f"{[f'{m:.3f}' for m in step_ms]} ms -> {ms_step:.3f} ms/step, "
+            f"{GARDEN_W * GARDEN_H / ms_step / 1e3:.3f} Mpix/s, loss "
+            f"{float(loss.detach()):.6g}, peak memory {peak:.3f} GiB, "
+            f"{diag}, launches {got}")
+        per_step = {k: v * TRAIN_STEPS for k, v in want.items()}
+        if got != per_step:
+            raise AssertionError(f"garden {name}: launches {got}, want "
+                                 f"{per_step}")
+        if diag["truncated"] != 0 or diag.get("grad_rows_dropped", 0) != 0:
+            raise AssertionError(f"garden {name}: rows dropped {diag}")
+        out[name] = got
+
+    # fused against classic gradients on the same parameters, f32 fold,
+    # beside classic against itself: the classic fold's f32 atomics add
+    # in another order each run, and on the scale field (sums that cancel)
+    # that noise alone reaches ~1e-4 of max|g|.  With K = 0 the fused pass
+    # blends exactly the classic rows; the tuned K also stops pass 1 at
+    # row K where the classic blend runs on to the end of the window in
+    # which a tile saturates (rows behind T < 1e-4).  Gate: 1e-3.
+    single = cfg.with_(prefix_rows=0, prefix_budget_rows=0,
+                       residual_budget_rows=0, grad_budget_rows=0,
+                       grad_residual_budget_rows=0)
+    grads = {}
+    for name, c in (("classic", classic), ("classic again", classic),
+                    ("fused K=0", single),
+                    (f"fused K={cfg.prefix_rows}", cfg)):
+        for p in params:
+            p.grad = None
+        img = render_with_aux(sc, view, proj, eye,
+                              c.with_(grad_fold_bf16=False))[0]
+        (img * img).sum().backward()
+        grads[name] = grads_of(params)
+    gc_all = grads.pop("classic")
+    for name, g_all in grads.items():
+        for f, gf, gc in zip(FIELDS, g_all, gc_all):
+            scale = float(gc.abs().max())
+            err = float((gf - gc).abs().max())
+            log(f"[garden] grad {f}: max|{name} - classic| {err:.4g}, "
+                f"max|g| {scale:.4g}, ratio "
+                f"{err / scale if scale else 0.0:.3e} (tol 1e-3)")
+            if not (scale > 0 and err <= 1e-3 * scale
+                    and bool(torch.isfinite(gf).all())):
+                raise AssertionError(f"garden: {name} {f} gradient "
+                                     f"disagrees with classic")
+    del grads, gc_all
+
+    # serving: three frames under the fused config
+    zero_counts()
+    frame_ms = []
+    with torch.no_grad():
+        for _ in range(3):
+            ms, (img, aux) = host_ms(
+                lambda: render_with_aux(sc, view, proj, eye, cfg))
+            frame_ms.append(ms)
+    got = counts()
+    log(f"[garden] fused serving frames {[f'{m:.3f}' for m in frame_ms]} ms"
+        f" -> {float(np.mean(frame_ms)):.3f} ms/frame, launches {got}")
+    if got != {**no_launch, "B1": 3, "B4": 3}:
+        raise AssertionError(f"garden serving launched {got}")
+    img_np = img.cpu().numpy()
+    if img_np.shape != (GARDEN_H, GARDEN_W, 3) \
+            or not np.isfinite(img_np).all() or not img_np.std() > 0.01:
+        raise AssertionError("garden frame is not a finite image")
+
+    # B4 and B5 alone on one fused step's own inputs
+    with torch.no_grad():
+        splats = project(sc, view, proj, eye, cfg)
+        pres = binning.bin_splats_presort(splats, cfg)
+        f = fz._forward(cfg, cfg.tiles_y, 1, pres.table_src,
+                        pres.rows_sorted, pres.starts_full, 0, train=True)
+    del splats, pres
+    ntile = cfg.num_tiles
+    seeded = (f["table2"], f["rstarts_c"], f["rcounts"], f["trans1"], 0,
+              cfg)
+    ms_b4, (rgb2, trans2, ckpt2, nproc2) = cuda_ms(
+        lambda: b1.tile_raster_fwd_seeded(*seeded, train=True), 10)
+    ms_b4_plain, plain = host_ms(
+        lambda: b1.tile_raster_fwd_seeded_plain(*seeded, train=True))
+    chk.close("B4", "garden step B4 rgb", rgb2, plain[0])
+    for name, a, b in zip(("T", "ckpt", "nproc"), (trans2, ckpt2, nproc2),
+                          plain[1:]):
+        chk.equal("B4", f"garden step B4 {name}", a, b)
+    del plain
+    g_rgb, g_trans = image_cotangents(f["rgb"], f["trans"], cfg)
+    np2, goff2, _, _ = fz._regions(f["rstarts_c"], f["rcounts"], nproc2,
+                                   fz._grad_budget2(cfg, ntile), ntile)
+    np1, goff1, _, _ = fz._regions(
+        f["pstarts_c"], f["pcounts"], f["nproc1"],
+        fz._grad_budget(cfg, f["table1"].shape[1], ntile), ntile)
+    passes = {
+        "pass 2": (f["table2"], f["rstarts_c"], f["rcounts"], np2, goff2,
+                   ckpt2, 0, g_rgb, g_trans, f["trans"],
+                   torch.zeros_like(f["trans"]), f["trans1"],
+                   fz._grad_budget2(cfg, ntile), cfg),
+        "pass 1": (f["table1"], f["pstarts_c"], f["pcounts"], np1, goff1,
+                   f["ckpt1"], 0, g_rgb, g_trans, f["trans"],
+                   (g_rgb * rgb2).sum(dim=-1), torch.ones_like(f["trans"]),
+                   fz._grad_budget(cfg, f["table1"].shape[1], ntile), cfg)}
+    ms_b5 = ms_b5_plain = 0.0
+    rows = {}
+    b5_bytes = 0
+    seg_bytes = (2 * ntile + 1) * 4
+    for name, args in passes.items():
+        ms, g = cuda_ms(lambda: b3.tile_raster_bwd_fused(*args), 5)
+        ms_plain, pg = host_ms(lambda: b3.tile_raster_bwd_fused_plain(*args))
+        chk.columns("B5", f"garden step B5 {name}", g, pg)
+        del g, pg
+        ms_b5 += ms / 2
+        ms_b5_plain += ms_plain / 2
+        rows[name] = int(rows_blended(args[1], args[3]).sum())
+        # table rows and ids read, 9 gradients + id written per row; g_rgb,
+        # g_trans, out_trans, suffix and t_entry per pixel; segments,
+        # nproc, goff; the checkpoint buffer
+        b5_bytes += rows[name] * (BLEND_ATTR_BYTES + 4 + 10 * 4) \
+            + ntile * 256 * 7 * 4 + seg_bytes + 2 * ntile * 4 \
+            + args[5].numel() * 4
+    rows_b4 = int(rows_blended(f["rstarts_c"], nproc2).sum())
+    log(f"[garden] kernels alone (CUDA events): B4 {ms_b4:.3f} ms, B5 "
+        f"{ms_b5:.3f} ms per launch; plain (host clock): B4 "
+        f"{ms_b4_plain:.3f} ms, B5 {ms_b5_plain:.3f} ms per launch; rows "
+        f"blended: pass 1 {rows['pass 1']}, pass 2 {rows_b4}; pass 2 "
+        f"listed {int(f['rcounts'].sum())} rows in "
+        f"{int((f['rcounts'] > 0).sum())} tiles, "
+        f"{int((f['pcounts'] >= cfg.prefix_rows).sum())} tiles filled "
+        f"their {cfg.prefix_rows}-row prefix")
+    bound_b4 = bound("B4", rows_b4 * 256 * FLOPS_PER_FRAGMENT,
+                     rows_b4 * BLEND_ATTR_BYTES + ntile * 256 * 5 * 4
+                     + seg_bytes + ntile * 4 + ckpt2.numel() * 4)
+    b5_rows = rows["pass 1"] + rows["pass 2"]
+    b5 = bound("B5 (both launches)", b5_rows * 256 * FLOPS_PER_FRAGMENT_B3,
+               b5_bytes)
+    return {"counts": out["fused"], "ms_b4": ms_b4,
+            "ms_b4_plain": ms_b4_plain, "bound_b4": bound_b4,
+            "ms_b5": ms_b5, "ms_b5_plain": ms_b5_plain,
+            "bound_b5": (b5[0] / 2, b5[1])}
 
 
 def bound(name, flops, nbytes):
@@ -255,7 +720,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = {"B1": b1.tile_raster_fwd, "B2": b1.tile_raster_fwd_train,
-                "B3": b3.tile_raster_bwd}
+                "B3": b3.tile_raster_bwd, "B4": b1.tile_raster_fwd_seeded,
+                "B5": b3.tile_raster_bwd_fused}
+    no_launch = {k: 0 for k in counters}
 
     def zero_counts():
         for fn in counters.values():
@@ -305,10 +772,18 @@ def main() -> int:
         splats = project(scene, view3, proj3, eye3, cfg)
         return binning.bin_splats(splats, cfg, **band)
 
+    def splats_of(scene, cfg):
+        return project(scene, view3, proj3, eye3, cfg)
+
     for name in GOLDEN_MODES:
         cfg = RenderConfig(width=GOLDEN_W, height=GOLDEN_H,
                            mode=RenderMode[name])
         kernels_vs_plain(chk, f"10k {name}", binned(scene3, cfg), cfg)
+        rows2 = fused_vs_plain(chk, f"10k {name}", splats_of(scene3, cfg),
+                               cfg.with_(**GOLDEN_FUSED))
+        log(f"[check] 10k {name}: residual pass blended {rows2} rows")
+        if rows2 == 0 and int(cfg.mode) >= int(RenderMode.DEPTH):
+            raise AssertionError(f"{name}: the residual pass had no work")
         img = render(scene3, view3, proj3, eye3, cfg)
         golden = np.load(GOLDEN_DIR / f"refres10k_{int(cfg.mode)}.npz")[
             "img"].astype(np.float32)
@@ -323,8 +798,11 @@ def main() -> int:
                           mean_scale=0.08, anisotropy=0.7)
     opaque.opacity.fill_(0.99)
     cfg = RenderConfig(width=GOLDEN_W, height=GOLDEN_H)
-    bs = binned(opaque.pad_to_multiple(1024).to(dev), cfg)
+    opaque = opaque.pad_to_multiple(1024).to(dev)
+    bs = binned(opaque, cfg)
     nproc = kernels_vs_plain(chk, "10k opaque", bs, cfg)
+    fused_vs_plain(chk, "10k opaque", splats_of(opaque, cfg),
+                   cfg.with_(**GOLDEN_FUSED))
     stopped = int((rows_blended(bs.tile_starts, nproc)
                    < bs.tile_counts).sum())
     log(f"[check] 10k opaque: early stop fired in {stopped} tiles")
@@ -335,6 +813,8 @@ def main() -> int:
     band_rows = cfg.tiles_y // 2
     bs = binned(scene3, cfg, row_offset=1, local_rows=band_rows, row_stride=2)
     kernels_vs_plain(chk, "10k band (rows 1::2)", bs, cfg, 1, (band_rows, 2))
+    fused_vs_plain(chk, "10k band (rows 1::2)", splats_of(scene3, cfg),
+                   cfg.with_(**GOLDEN_FUSED), 1, band_rows, 2)
 
     # ---- 4. the serving path at full size
     cfg4 = RenderConfig(width=FULL_W, height=FULL_H)
@@ -402,7 +882,7 @@ def main() -> int:
     log(f"[full] num_duplicates {int(aux['num_duplicates'])}, truncated "
         f"{int(aux['truncated'])}, overflow {int(aux['overflow'])}, peak "
         f"memory {peak_gib:.3f} GiB, launches {serve_counts}")
-    if serve_counts != {"B1": 3, "B2": 0, "B3": 0}:
+    if serve_counts != {**no_launch, "B1": 3}:
         raise AssertionError(f"3 frames launched {serve_counts}")
     img_np = img.cpu().numpy()
     if img_np.shape != (FULL_H, FULL_W, 3) or not np.isfinite(img_np).all():
@@ -417,59 +897,19 @@ def main() -> int:
     params = [getattr(sc, f) for f in FIELDS]
 
     def train_step():
-        for p in params:
-            p.grad = None
-        img = render(sc, view4, proj4, eye4, cfg4)
-        loss = (img * img).sum()
-        loss.backward()
-        with torch.no_grad():
-            for p in params:
-                p.sub_(p.grad, alpha=SGD_LR)
-        return loss
+        return sgd_step(sc, params, view4, proj4, eye4, cfg4)[0]
 
     for _ in range(2):  # warm-up
         train_step()
     torch.cuda.synchronize()
 
-    # stage times inside real steps: CUDA events recorded between the
-    # forward stages and, from autograd hooks, when the table's gradient
-    # (after B3) and the packed rows' gradient (after the fold) are ready
-    stages = ("project", "bin", "B2", "image+loss", "B3", "fold",
-              "projection backward", "update")
-
-    def staged_step():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
-        for p in params:
-            p.grad = None
-        ev[0].record()
-        splats = project(sc, view4, proj4, eye4, cfg4)
-        ev[1].record()
-        bs = binning.bin_splats(splats, cfg4)
-        ev[2].record()
-        rgb, trans = blend_tiles(cfg4, cfg4.tiles_y, 1, bs.table,
-                                 bs.tile_starts, bs.tile_counts, 0)
-        ev[3].record()
-        img, t_img = _tiles_to_image(rgb, trans, cfg4)
-        img = img + cfg4.background * t_img[..., None]
-        loss = (img * img).sum()
-        ev[4].record()
-        bs.table.register_hook(lambda g: ev[5].record())
-        packed_node = bs.table.grad_fn.next_functions[0][0]
-        packed_node.register_prehook(lambda g: ev[6].record())
-        loss.backward()
-        ev[7].record()
-        with torch.no_grad():
-            for p in params:
-                p.sub_(p.grad, alpha=SGD_LR)
-        ev[8].record()
-        torch.cuda.synchronize()
-        return [ev[i].elapsed_time(ev[i + 1]) for i in range(8)]
-
-    staged = np.array([staged_step() for _ in range(3)])
-    stage_ms = dict(zip(stages, staged.mean(axis=0).tolist()))
+    # stage times inside real steps (see classic_staged_step)
+    stage_ms, stage_sum = staged_means(
+        lambda: classic_staged_step(sc, params, view4, proj4, eye4, cfg4),
+        CLASSIC_STAGES)
     log("[train] stages in a step (CUDA events, mean of 3): " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in stage_ms.items())
-        + f"; sum {staged.sum(axis=1).mean():.3f} ms")
+        + f"; sum {stage_sum:.3f} ms")
 
     # the kernels alone on one step's own table and cotangents
     splats = project(sc, view4, proj4, eye4, cfg4)
@@ -478,15 +918,9 @@ def main() -> int:
     with torch.no_grad():
         ms_b2, (rgb, trans, ckpt, nproc) = cuda_ms(
             lambda: b1.tile_raster_fwd_train(*targs), 10)
-    # the cotangents the step's backward hands B3: d sum(img^2) / d tiles
-    rgb_l = rgb.detach().requires_grad_(True)
-    trans_l = trans.detach().requires_grad_(True)
-    img_l, t_l = _tiles_to_image(rgb_l, trans_l, cfg4)
-    img_l = img_l + cfg4.background * t_l[..., None]
-    g_rgb, g_trans = torch.autograd.grad((img_l * img_l).sum(),
-                                         (rgb_l, trans_l))
+    g_rgb, g_trans = image_cotangents(rgb, trans, cfg4)
     bwd = (targs[0], bs.tile_starts, bs.tile_counts, nproc, ckpt, 0,
-           g_rgb.contiguous(), g_trans.contiguous(), trans, cfg4)
+           g_rgb, g_trans, trans, cfg4)
     ms_b3, g_table = cuda_ms(lambda: b3.tile_raster_bwd(*bwd), 5)
     log(f"[train] kernels alone (CUDA events): B2 {ms_b2:.3f} ms, B3 "
         f"{ms_b3:.3f} ms")
@@ -512,8 +946,8 @@ def main() -> int:
                      rows * BLEND_ATTR_BYTES + ntile * 256 * 5 * 4
                      + seg_bytes + ntile * 4 + 2 * dpad * 4
                      + 16 * dpad * 4)
-    del splats, bs, g_table, pg, rgb, trans, ckpt, rgb_l, trans_l, img_l
-    del t_l, g_rgb, g_trans, bwd, targs
+    del splats, bs, g_table, pg, rgb, trans, ckpt, g_rgb, g_trans, bwd
+    del targs
 
     # device busy share: kernel time per step (torch.profiler over two
     # steps) against the unprofiled step time below
@@ -549,7 +983,7 @@ def main() -> int:
     log(f"[train] device kernel time {device_ms:.3f} ms/step (profiler) -> "
         f"busy {device_ms / ms_step:.3f}, idle {1 - device_ms / ms_step:.3f} "
         f"of the unprofiled step")
-    want = {"B1": 0, "B2": TRAIN_STEPS, "B3": TRAIN_STEPS}
+    want = {**no_launch, "B2": TRAIN_STEPS, "B3": TRAIN_STEPS}
     if train_counts != want:
         raise AssertionError(f"{TRAIN_STEPS} steps launched {train_counts}")
     for name, p in zip(FIELDS, params):
@@ -620,30 +1054,39 @@ def main() -> int:
         thread.join(timeout=30)
     app_counts = counts()
     log(f"[serve] launches for 3 renders: {app_counts}")
-    if app_counts != {"B1": 3, "B2": 0, "B3": 0}:
+    if app_counts != {**no_launch, "B1": 3}:
         raise AssertionError("serve renders did not go through B1 alone")
 
-    # ---- 8. kernels line, card line, result
+    del big, scene_1m
+    torch.cuda.empty_cache()
+
+    # ---- 8. the garden cell
+    g = garden_cell(chk, zero_counts, counts, no_launch)
+
+    # ---- 9. kernels line, card line, result
     fwd_src = "gaussiansplattingviewer_tpu_torch/csrc/tile_raster_fwd.cu"
+    bwd_src = "gaussiansplattingviewer_tpu_torch/csrc/tile_raster_bwd.cu"
     pallas = "gaussiansplattingviewer_tpu/ops/pallas/"
+
+    def entry(name, src, replaces, key, launches, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": pallas + replaces, "launches": launches,
+                "max_abs_err": chk.err[key], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
     line = {"kernels": [
-        {"name": "tile_raster_fwd", "route": "cuda", "source": fwd_src,
-         "replaces": pallas + "tile_raster_fwd.py:202",
-         "launches": serve_counts["B1"], "max_abs_err": chk.err["B1"],
-         "ms": ms_b1, "plain_ms": ms_b1_plain, "bound_ms": bound_b1[0],
-         "bound_by": bound_b1[1], "library_ms": None},
-        {"name": "tile_raster_fwd_train", "route": "cuda", "source": fwd_src,
-         "replaces": pallas + "tile_raster_fwd.py:418",
-         "launches": train_counts["B2"], "max_abs_err": chk.err["B2"],
-         "ms": ms_b2, "plain_ms": ms_b2_plain, "bound_ms": bound_b2[0],
-         "bound_by": bound_b2[1], "library_ms": None},
-        {"name": "tile_raster_bwd", "route": "cuda",
-         "source": "gaussiansplattingviewer_tpu_torch/csrc/"
-                   "tile_raster_bwd.cu",
-         "replaces": pallas + "tile_raster_bwd.py:614",
-         "launches": train_counts["B3"], "max_abs_err": chk.err["B3"],
-         "ms": ms_b3, "plain_ms": ms_b3_plain, "bound_ms": bound_b3[0],
-         "bound_by": bound_b3[1], "library_ms": None},
+        entry("tile_raster_fwd", fwd_src, "tile_raster_fwd.py:202", "B1",
+              serve_counts["B1"], ms_b1, ms_b1_plain, bound_b1),
+        entry("tile_raster_fwd_train", fwd_src, "tile_raster_fwd.py:418",
+              "B2", train_counts["B2"], ms_b2, ms_b2_plain, bound_b2),
+        entry("tile_raster_bwd", bwd_src, "tile_raster_bwd.py:614", "B3",
+              train_counts["B3"], ms_b3, ms_b3_plain, bound_b3),
+        entry("tile_raster_fwd_seeded", fwd_src, "tile_raster_fwd.py:437",
+              "B4", g["counts"]["B4"], g["ms_b4"], g["ms_b4_plain"],
+              g["bound_b4"]),
+        entry("tile_raster_bwd_fused", bwd_src, "tile_raster_bwd.py:536",
+              "B5", g["counts"]["B5"], g["ms_b5"], g["ms_b5_plain"],
+              g["bound_b5"]),
     ]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))

@@ -15,9 +15,13 @@ Usage:
       [--gs-model scene_dir] [--steps 200] [--width 256 --height 192] \\
       [--device cuda]
 
-Not ported yet: the JAX app's --n-devices (mesh sharding), --autotune and
-the overflow-triggered re-tune (the port's binning is exact and needs no
-pool tuning).
+--autotune tunes the config to the scene over the training poses before
+the first step (ops/autotune.py) and re-tunes it whenever the binning's
+overflow or truncation diagnostic fires (--overflow-check-every).  The
+port's binning is exact, so of the tuned fields only table_budget_rows
+changes what it computes.
+
+Not ported yet: the JAX app's --n-devices (mesh sharding).
 """
 
 from __future__ import annotations
@@ -42,6 +46,10 @@ from gaussiansplattingviewer_tpu_torch.models.gaussians import (
     GaussianData,
 )
 from gaussiansplattingviewer_tpu_torch.models.ply import load_ply
+from gaussiansplattingviewer_tpu_torch.ops.autotune import (
+    autotune,
+    binning_overflow,
+)
 from gaussiansplattingviewer_tpu_torch.ops.render import render, resolve_device
 from gaussiansplattingviewer_tpu_torch.utils import colmap
 from gaussiansplattingviewer_tpu_torch.utils import transforms as tf
@@ -78,6 +86,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                     "PyTorch versions of the kernels)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune the config to the scene over the training "
+                    "poses (ops/autotune.py) before the first step")
+    ap.add_argument("--overflow-check-every", type=int, default=0,
+                    help="every K steps, check binning overflow/truncation "
+                    "on the current pose and RE-TUNE if the evolving scene "
+                    "outgrew the config (0 = log_every; negative disables)")
     return ap
 
 
@@ -161,6 +176,20 @@ def main(argv=None) -> int:
     print(f"{len(triples)} training views, backend={backend}, device={dev}",
           file=sys.stderr)
 
+    def tune(c, sc):
+        tuned = autotune(
+            sc, [v for v, _, _ in triples], [proj] * len(triples),
+            [p for _, p, _ in triples],
+            c.with_(pool_ladder=(), pool_huge_entries=0, table_budget_rows=0),
+        )
+        print(f"# autotuned: k1={tuned.dense_small_slots} "
+              f"ladder={tuned.pool_ladder} "
+              f"table_rows={tuned.table_budget_rows}", file=sys.stderr)
+        return tuned
+
+    if args.autotune:
+        cfg = tune(cfg, scene)
+
     if args.self_distill:
         rng = np.random.default_rng(0)
 
@@ -182,6 +211,7 @@ def main(argv=None) -> int:
                            .requires_grad_(True) for f in _FIELDS))
     optimizer = torch.optim.Adam([getattr(scene, f) for f in _FIELDS],
                                  lr=args.lr, betas=(0.9, 0.999), eps=1e-8)
+    check_every = args.overflow_check_every or args.log_every
     first = mean_loss(scene, triples, proj, render_fn, args.loss)
     t0 = time.time()
     for i in range(args.steps):
@@ -194,6 +224,14 @@ def main(argv=None) -> int:
         if i % args.log_every == 0:
             print(f"step {i:5d}  loss {float(loss.detach()):.6f}",
                   file=sys.stderr)
+        if check_every > 0 and (i + 1) % check_every == 0:
+            # the evolving scene can outgrow a tuned config (splats drift
+            # or inflate); the diagnostics are the trigger to re-tune
+            ovf, trunc = binning_overflow(scene, view, proj, cam_pos, cfg)
+            if int(ovf) or int(trunc):
+                print(f"step {i}: binning overflow={int(ovf)} "
+                      f"truncated={int(trunc)} - re-tuning", file=sys.stderr)
+                cfg = tune(cfg, scene)
         if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
             save_train_state(args.ckpt_dir, i + 1, scene, optimizer)
     if dev.type == "cuda":

@@ -63,10 +63,22 @@ class RenderConfig:
       grad_fold_bf16: the binning gradient fold rounds each table row's
         gradient to bf16 before summing it onto its splat (the JAX default).
 
+    The fused prefix/residual path (ops/fused.py; set by
+    ops/autotune.py at garden scale):
+      fused_grad: render through it instead of bin_splats + blend_tiles.
+      prefix_rows: K, the rows of each tile blended in pass 1 (0 = one
+        full pass); residual_budget_rows must then be set.
+      prefix_budget_rows / residual_budget_rows: rows gathered by pass 1
+        (0 = the table budget) and pass 2; the excess is dropped and
+        counted in ``truncated``.
+      grad_budget_rows / grad_residual_budget_rows: compact gradient rows
+        of each pass (0 = a safe bound); tiles past it lose their gradients
+        for the step, counted in ``grad_rows_dropped``.
+
     Accepted for compatibility, no effect in the port: dup_factor,
     dense_small_slots, dense_mid_slots, dense_big_slots, pool_*_fraction,
-    pool_ladder, pool_huge_entries (TPU scatter avoidance) and the
-    fused-path budgets.  fused_grad=True raises NotImplementedError.
+    pool_ladder and pool_huge_entries (TPU scatter avoidance; the
+    autotuner still writes and reads them, see ops/autotune.py).
     """
 
     width: int = 1160
@@ -108,12 +120,6 @@ class RenderConfig:
 
     def __post_init__(self):
         object.__setattr__(self, "mode", RenderMode(int(self.mode)))
-        if self.fused_grad:
-            raise NotImplementedError(
-                "fused_grad (the fused prefix/residual path) is not ported "
-                "yet: it arrives after the training slice, with kernels "
-                "B4/B5"
-            )
 
     @property
     def tiles_x(self) -> int:

@@ -1,14 +1,25 @@
 // Tile blend forward: front-to-back alpha blending of the depth-sorted
-// splat rows of each 16x16-pixel tile.  One kernel template, two entry
+// splat rows of each 16x16-pixel tile.  One kernel template, four entry
 // points:
 //
-//   gsv_tile_raster_fwd        kernel B1, the inference blend;
-//   gsv_tile_raster_fwd_train  kernel B2, B1 plus the backward's residuals.
+//   gsv_tile_raster_fwd               kernel B1, the inference blend;
+//   gsv_tile_raster_fwd_train         kernel B2, B1 plus the backward's
+//                                     residuals;
+//   gsv_tile_raster_fwd_seeded        kernel B4, the fused path's residual
+//   gsv_tile_raster_fwd_seeded_train  pass (inference and train variants).
 //
 // Replaces: gaussiansplattingviewer_tpu/ops/pallas/tile_raster_fwd.py,
 // _fwd_kernel (seeded=False) as launched by rasterize_binned_pallas_soa
 // (with_ckpt=False, B1) and by rasterize_binned_pallas_train
-// (with_ckpt=True, B2).
+// (with_ckpt=True, B2); _fwd_kernel(seeded=True) as launched by
+// rasterize_binned_pallas_seeded (B4, train=False/True).
+//
+// B4 (SEEDED) differs in one place: each pixel's transmittance starts from
+// t_init[t * 256 + p] (pass 1's exit transmittance, ops/fused.py) instead
+// of 1.0, while rgb still accumulates from zero (the caller adds pass 1's
+// rgb).  Exact by associativity of front-to-back compositing.  The tile's
+// first block keeps no checkpoint here either: the backward (B5) takes its
+// entering T from t_init.
 //
 // Semantics are the TPU kernel's: tile t blends table columns
 // [starts[t], starts[t] + counts[t]) read in 256-row windows aligned to
@@ -106,15 +117,16 @@ __device__ __forceinline__ void blend_rows(
 }
 
 // TRAIN = false is kernel B1, TRAIN = true kernel B2 (nproc and ckpt are
-// written only then).
-template <int MODE, bool TRAIN>
+// written only then); SEEDED adds B4's entering transmittance t_init.
+template <int MODE, bool TRAIN, bool SEEDED>
 __global__ void __launch_bounds__(kPixels) tile_raster_fwd_kernel(
     const float* __restrict__ table, int64_t dpad,
     const int* __restrict__ starts, const int* __restrict__ counts,
     int row_offset, int tiles_x, int row_stride, float alpha_clamp,
     float alpha_min, float ball_threshold, float early_stop,
-    float* __restrict__ out_rgb, float* __restrict__ out_trans,
-    int* __restrict__ out_nproc, float* __restrict__ ckpt) {
+    const float* __restrict__ t_init, float* __restrict__ out_rgb,
+    float* __restrict__ out_trans, int* __restrict__ out_nproc,
+    float* __restrict__ ckpt) {
   __shared__ float rows[kAttrs][kChunk];
   const int t = blockIdx.x;
   const int p = threadIdx.x;
@@ -130,7 +142,9 @@ __global__ void __launch_bounds__(kPixels) tile_raster_fwd_kernel(
   // this pixel's slot in a checkpoint window: ckpt[p / 128][c + p % 128]
   const int64_t ck_off = static_cast<int64_t>(p / kAlign) * dpad + p % kAlign;
 
-  float T = 1.0f, acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  const int64_t o = static_cast<int64_t>(t) * kPixels + p;
+  float T = SEEDED ? t_init[o] : 1.0f;
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   int ci = 0;
   for (; ci < num_chunks; ++ci) {
     // tile-wide stop; also the barrier before rows[] is overwritten
@@ -162,7 +176,6 @@ __global__ void __launch_bounds__(kPixels) tile_raster_fwd_kernel(
       if (w0 + kChunk < end) ckpt[ck_off + w0 + kChunk] = T;
     }
   }
-  const int64_t o = static_cast<int64_t>(t) * kPixels + p;
   out_rgb[o * 3 + 0] = acc_r;
   out_rgb[o * 3 + 1] = acc_g;
   out_rgb[o * 3 + 2] = acc_b;
@@ -170,19 +183,20 @@ __global__ void __launch_bounds__(kPixels) tile_raster_fwd_kernel(
   if (TRAIN && p == 0) out_nproc[t] = ci;
 }
 
-template <bool TRAIN>
+template <bool TRAIN, bool SEEDED>
 int launch(const float* table, long long dpad, const int* starts,
            const int* counts, int num_tiles, int row_offset, int tiles_x,
            int row_stride, int mode, float alpha_clamp, float alpha_min,
-           float ball_threshold, float early_stop, float* out_rgb,
-           float* out_trans, int* out_nproc, float* ckpt, void* stream) {
+           float ball_threshold, float early_stop, const float* t_init,
+           float* out_rgb, float* out_trans, int* out_nproc, float* ckpt,
+           void* stream) {
   if (num_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(num_tiles), block(kPixels);
 #define GSV_LAUNCH(M)                                                       \
-  tile_raster_fwd_kernel<M, TRAIN><<<grid, block, 0, s>>>(                  \
+  tile_raster_fwd_kernel<M, TRAIN, SEEDED><<<grid, block, 0, s>>>(          \
       table, dpad, starts, counts, row_offset, tiles_x, row_stride,         \
-      alpha_clamp, alpha_min, ball_threshold, early_stop, out_rgb,          \
+      alpha_clamp, alpha_min, ball_threshold, early_stop, t_init, out_rgb,  \
       out_trans, out_nproc, ckpt)
   switch (mode) {
     case kGauss: GSV_LAUNCH(kGauss); break;
@@ -202,10 +216,11 @@ extern "C" int gsv_tile_raster_fwd(
     int num_tiles, int row_offset, int tiles_x, int row_stride, int mode,
     float alpha_clamp, float alpha_min, float ball_threshold,
     float early_stop, float* out_rgb, float* out_trans, void* stream) {
-  return launch<false>(table, dpad, starts, counts, num_tiles, row_offset,
-                       tiles_x, row_stride, mode, alpha_clamp, alpha_min,
-                       ball_threshold, early_stop, out_rgb, out_trans,
-                       nullptr, nullptr, stream);
+  return launch<false, false>(table, dpad, starts, counts, num_tiles,
+                              row_offset, tiles_x, row_stride, mode,
+                              alpha_clamp, alpha_min, ball_threshold,
+                              early_stop, nullptr, out_rgb, out_trans,
+                              nullptr, nullptr, stream);
 }
 
 extern "C" int gsv_tile_raster_fwd_train(
@@ -214,10 +229,37 @@ extern "C" int gsv_tile_raster_fwd_train(
     float alpha_clamp, float alpha_min, float ball_threshold,
     float early_stop, float* out_rgb, float* out_trans, int* out_nproc,
     float* ckpt, void* stream) {
-  return launch<true>(table, dpad, starts, counts, num_tiles, row_offset,
-                      tiles_x, row_stride, mode, alpha_clamp, alpha_min,
-                      ball_threshold, early_stop, out_rgb, out_trans,
-                      out_nproc, ckpt, stream);
+  return launch<true, false>(table, dpad, starts, counts, num_tiles,
+                             row_offset, tiles_x, row_stride, mode,
+                             alpha_clamp, alpha_min, ball_threshold,
+                             early_stop, nullptr, out_rgb, out_trans,
+                             out_nproc, ckpt, stream);
+}
+
+extern "C" int gsv_tile_raster_fwd_seeded(
+    const float* table, long long dpad, const int* starts, const int* counts,
+    int num_tiles, int row_offset, int tiles_x, int row_stride, int mode,
+    float alpha_clamp, float alpha_min, float ball_threshold,
+    float early_stop, const float* t_init, float* out_rgb, float* out_trans,
+    void* stream) {
+  return launch<false, true>(table, dpad, starts, counts, num_tiles,
+                             row_offset, tiles_x, row_stride, mode,
+                             alpha_clamp, alpha_min, ball_threshold,
+                             early_stop, t_init, out_rgb, out_trans, nullptr,
+                             nullptr, stream);
+}
+
+extern "C" int gsv_tile_raster_fwd_seeded_train(
+    const float* table, long long dpad, const int* starts, const int* counts,
+    int num_tiles, int row_offset, int tiles_x, int row_stride, int mode,
+    float alpha_clamp, float alpha_min, float ball_threshold,
+    float early_stop, const float* t_init, float* out_rgb, float* out_trans,
+    int* out_nproc, float* ckpt, void* stream) {
+  return launch<true, true>(table, dpad, starts, counts, num_tiles,
+                            row_offset, tiles_x, row_stride, mode,
+                            alpha_clamp, alpha_min, ball_threshold,
+                            early_stop, t_init, out_rgb, out_trans, out_nproc,
+                            ckpt, stream);
 }
 
 extern "C" const char* gsv_cuda_error_string(int code) {

@@ -17,6 +17,9 @@ duplicate count:
   4. ``searchsorted`` tile starts, the table budget and ``truncated``,
      and one row gather into the (16, cap + TABLE_PAD) table.
 
+``bin_splats_presort`` stops before step 4's budget and gather: the fused
+path (ops/fused.py) gathers per-tile row prefixes itself.
+
 Only the gather is differentiable (``_GatherTableRows``, the counterpart of
 the JAX ``_gather_table_rows`` custom_vjp): its backward keeps the first
 GRAD_WIDTH table columns, rounds them to bf16 when ``cfg.grad_fold_bf16``
@@ -237,14 +240,34 @@ def _tight_live(splats: ProjectedSplats, cfg: RenderConfig, sid, tx_i, ty_i,
     return f_min <= thr
 
 
-def bin_splats(splats: ProjectedSplats, cfg: RenderConfig,
-               row_offset: int = 0, local_rows: int | None = None,
-               row_stride: int = 1) -> BinnedSplats:
-    """Depth-ordered per-tile lists over the shard's ``local_rows`` global
-    tile rows {row_offset + s * row_stride}; defaults cover the image."""
+@dataclasses.dataclass
+class PresortedBins:
+    """``bin_splats`` minus the table gather: the fused path's input
+    (ops/fused.py gathers per-tile row prefixes itself).
+
+    table_src: (N, TABLE_WIDTH) f32 ``pack_table`` rows (differentiable).
+    rows_sorted: (live duplicates,) int64 splat id of every sorted row, in
+      (tile | depth | id) order; only live rows (JAX pads to the slot
+      capacity with dead slots past the last tile).
+    starts_full: (num_tiles + 1,) i32 UNCLIPPED segment boundaries into
+      rows_sorted (the fused path applies its own budgets).
+    num_duplicates: () i32 live duplicates.  overflow: as in BinnedSplats.
+    """
+
+    table_src: torch.Tensor
+    rows_sorted: torch.Tensor
+    starts_full: torch.Tensor
+    num_duplicates: torch.Tensor
+    overflow: torch.Tensor
+
+
+def _sorted_rows(splats: ProjectedSplats, cfg: RenderConfig, row_offset: int,
+                 local_rows: int | None, row_stride: int):
+    """Candidates -> tight cull -> (tile | depth | id) sort, on detached
+    values.  Returns (sorted splat ids (M,) int64, unclipped tile starts
+    (T + 1,) int64, overflow () i32)."""
     if local_rows is None:
         local_rows = cfg.tiles_y
-    packed = pack_table(splats)
     splats = ProjectedSplats(**{
         f.name: getattr(splats, f.name).detach()
         for f in dataclasses.fields(splats)})
@@ -287,7 +310,37 @@ def bin_splats(splats: ProjectedSplats, cfg: RenderConfig,
     bounds = (torch.arange(num_tiles + 1, device=dev, dtype=torch.int64)
               << (depth_bits + id_bits))
     starts = torch.searchsorted(key_sorted, bounds)
-    total = int(key_sorted.shape[0])
+    return sid_sorted, starts, overflowed.sum().to(torch.int32)
+
+
+def bin_splats_presort(splats: ProjectedSplats, cfg: RenderConfig,
+                       row_offset: int = 0, local_rows: int | None = None,
+                       row_stride: int = 1) -> PresortedBins:
+    """Duplicate expansion and the fused (tile | depth) sort without the
+    table gather (the port of the JAX ``bin_splats_presort``)."""
+    sid_sorted, starts, overflow = _sorted_rows(splats, cfg, row_offset,
+                                                local_rows, row_stride)
+    return PresortedBins(
+        table_src=pack_table(splats),
+        rows_sorted=sid_sorted,
+        starts_full=starts.to(torch.int32),
+        num_duplicates=torch.tensor(int(sid_sorted.shape[0]),
+                                    dtype=torch.int32,
+                                    device=sid_sorted.device),
+        overflow=overflow,
+    )
+
+
+def bin_splats(splats: ProjectedSplats, cfg: RenderConfig,
+               row_offset: int = 0, local_rows: int | None = None,
+               row_stride: int = 1) -> BinnedSplats:
+    """Depth-ordered per-tile lists over the shard's ``local_rows`` global
+    tile rows {row_offset + s * row_stride}; defaults cover the image."""
+    packed = pack_table(splats)
+    sid_sorted, starts, overflow = _sorted_rows(splats, cfg, row_offset,
+                                                local_rows, row_stride)
+    n = packed.shape[0]
+    total = int(sid_sorted.shape[0])
 
     # ---- budgeted table
     budget = cfg.table_budget_rows or cfg.table_budget_factor * n
@@ -296,12 +349,12 @@ def bin_splats(splats: ProjectedSplats, cfg: RenderConfig,
     counts = starts[1:] - starts[:-1]
     table = _GatherTableRows.apply(packed, sid_sorted[:cap], cap + TABLE_PAD,
                                    bool(cfg.grad_fold_bf16))
-    i32 = dict(dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=packed.device)
     return BinnedSplats(
         table=table,
         tile_starts=starts,
         tile_counts=counts,
         num_duplicates=torch.tensor(cap, **i32),
-        overflow=overflowed.sum().to(torch.int32),
+        overflow=overflow,
         truncated=torch.tensor(max(total - budget, 0), **i32),
     )

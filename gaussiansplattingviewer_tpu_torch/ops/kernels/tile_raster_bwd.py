@@ -1,15 +1,20 @@
-"""Kernel B3: the tile blend backward, hand-written in CUDA for Hopper.
+"""Kernels B3 and B5: the tile blend backward, hand-written in CUDA for
+Hopper.
 
-Replaces ``gaussiansplattingviewer_tpu/ops/pallas/tile_raster_bwd.py``
-``_bwd_kernel`` (fused=False) as launched by ``blend_bwd_pallas_soa``.  The
-CUDA source (``csrc/tile_raster_bwd.cu``) gives the gradient math, the
-traversal (back to front from kernel B2's checkpoints), the fixed-order
-reduction, what bounds it on an H100 (FP32 throughput) and what its design
-does about that.
+B3 (``tile_raster_bwd``) replaces ``gaussiansplattingviewer_tpu/ops/
+pallas/tile_raster_bwd.py`` ``_bwd_kernel`` (fused=False) as launched by
+``blend_bwd_pallas_soa``; B5 (``tile_raster_bwd_fused``) the same kernel
+with fused=True as launched by ``blend_bwd_fused``, the fused path's
+compact backward (seeded suffix and entering transmittance, gradients at
+per-tile compact offsets with the splat id beside them).  The CUDA source
+(``csrc/tile_raster_bwd.cu``) gives the gradient math, the traversal (back
+to front from the forward's checkpoints), the fixed-order reduction, what
+bounds it on an H100 (FP32 throughput) and what its design does about
+that.
 
-``tile_raster_bwd`` launches the kernel for CUDA tensors and runs
-``tile_raster_bwd_plain``, its plain PyTorch version with the same
-signature and semantics, for CPU tensors.  The plain version is the CPU
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version (``*_plain``, same signature and semantics) for CPU
+tensors.  The plain version is the CPU
 executor and the reference the kernel is held against on the card: t_i and
 alpha are the kernel's bit for bit, and the suffix S runs in the kernel's
 order, so only the sums over a row's 256 pixels differ in order.
@@ -40,13 +45,17 @@ _F = ctypes.c_float
 
 
 def _check_residuals(table, nproc, ckpt, g_rgb, g_trans, out_trans,
-                     num_tiles):
+                     num_tiles, **fused):
     p = 256
-    shapes = ((nproc, (num_tiles,), torch.int32),
+    shapes = [(nproc, (num_tiles,), torch.int32),
               (ckpt, (p // SCAN_BLOCK, table.shape[1]), torch.float32),
               (g_rgb, (num_tiles, p, 3), torch.float32),
               (g_trans, (num_tiles, p), torch.float32),
-              (out_trans, (num_tiles, p), torch.float32))
+              (out_trans, (num_tiles, p), torch.float32)]
+    if fused:
+        shapes += [(fused["goff"], (num_tiles,), torch.int32),
+                   (fused["suffix_init"], (num_tiles, p), torch.float32),
+                   (fused["t_entry"], (num_tiles, p), torch.float32)]
     for t, shape, dtype in shapes:
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"expected {dtype} {shape}, got {t.dtype} "
@@ -83,31 +92,88 @@ def tile_raster_bwd(table, starts, counts, nproc, ckpt, row_offset, g_rgb,
         return tile_raster_bwd_plain(table, starts, counts, nproc, ckpt,
                                      row_offset, g_rgb, g_trans, out_trans,
                                      cfg, local_rows, row_stride)
-    dev = table.device
     g_table = torch.zeros_like(table)
-    if num_tiles == 0:
-        return g_table
-    lib = build.load("tile_raster_bwd")
-    fn = lib.gsv_tile_raster_bwd
-    fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _I,
-                   _I, _F, _F, _F, _F, _P, _P, _P, _P, _P]
-    fn.restype = _I
-    with torch.cuda.device(dev):
-        rc = fn(
-            table.data_ptr(), table.shape[1], starts.data_ptr(),
-            counts.data_ptr(), nproc.data_ptr(), ckpt.data_ptr(), num_tiles,
-            int(row_offset), cfg.tiles_x, row_stride,
-            MODE_CODE.get(cfg.mode, 0), cfg.alpha_clamp,
-            1.0 - cfg.alpha_clamp, cfg.alpha_min, cfg.ball_threshold,
-            g_rgb.data_ptr(), g_trans.data_ptr(), out_trans.data_ptr(),
-            g_table.data_ptr(), stream_of(dev),
-        )
-    build.check(lib, rc, "tile_raster_bwd launch")
-    tile_raster_bwd.launches += 1
+    if num_tiles:
+        _bwd_cuda(table, starts, counts, nproc, None, ckpt, row_offset,
+                  g_rgb, g_trans, out_trans, None, None, g_table, cfg,
+                  num_tiles, row_stride)
+        tile_raster_bwd.launches += 1
     return g_table
 
 
 tile_raster_bwd.launches = 0
+
+
+def _bwd_cuda(table, starts, counts, nproc, goff, ckpt, row_offset, g_rgb,
+              g_trans, out_trans, suffix_init, t_entry, g_out,
+              cfg: RenderConfig, num_tiles, row_stride):
+    """Launch ``csrc/tile_raster_bwd.cu``: B3 when ``goff`` is None, else
+    B5 into the compact buffer ``g_out``."""
+    dev = table.device
+    lib = build.load("tile_raster_bwd")
+    fused = goff is not None
+    fn = lib.gsv_tile_raster_bwd_fused if fused else lib.gsv_tile_raster_bwd
+    head = [table.data_ptr(), table.shape[1], starts.data_ptr(),
+            counts.data_ptr(), nproc.data_ptr()] \
+        + ([goff.data_ptr()] if fused else []) + [ckpt.data_ptr()]
+    tail = [g_rgb.data_ptr(), g_trans.data_ptr(), out_trans.data_ptr()] \
+        + ([suffix_init.data_ptr(), t_entry.data_ptr(), g_out.shape[1]]
+           if fused else []) + [g_out.data_ptr(), stream_of(dev)]
+    fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _P] + [_P] * fused \
+        + [_P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P] \
+        + [_P, _P, ctypes.c_longlong] * fused + [_P, _P]
+    fn.restype = _I
+    with torch.cuda.device(dev):
+        rc = fn(*head, num_tiles, int(row_offset), cfg.tiles_x, row_stride,
+                MODE_CODE.get(cfg.mode, 0), cfg.alpha_clamp,
+                1.0 - cfg.alpha_clamp, cfg.alpha_min, cfg.ball_threshold,
+                *tail)
+    build.check(lib, rc, f"{fn.__name__} launch")
+
+
+def tile_raster_bwd_fused(table, starts, counts, nproc, goff, ckpt,
+                          row_offset, g_rgb, g_trans, out_trans, suffix_init,
+                          t_entry, grad_rows: int, cfg: RenderConfig,
+                          local_rows: int | None = None,
+                          row_stride: int = 1):
+    """Kernel B5, the fused path's compact backward.
+
+    As ``tile_raster_bwd``, except: the suffix carry starts from
+    ``suffix_init`` (T, 256) and the tile's first block enters with
+    ``t_entry`` (T, 256) instead of 1.0; the gradients of the row at table
+    column w0 + j of window ci land at column ``goff[t]`` + ci * 256 + j of
+    a (16, grad_rows) f32 buffer, whose row 15 receives the table's row 15
+    (the splat id).  goff (T,) int32 are 256-multiples giving each tile a
+    region of nproc * 256 columns; the caller sets nproc to 0 for tiles
+    whose region does not fit.  Columns no live row lands on stay 0 (id 0,
+    gradient 0).
+
+    CUDA tensors launch the kernel (one launch, counted in
+    ``tile_raster_bwd_fused.launches``); CPU tensors run the plain version.
+    """
+    if local_rows is None:
+        local_rows = cfg.tiles_y
+    num_tiles = local_rows * cfg.tiles_x
+    check_inputs(table, starts, counts, cfg, num_tiles)
+    _check_residuals(table, nproc, ckpt, g_rgb, g_trans, out_trans,
+                     num_tiles, goff=goff, suffix_init=suffix_init,
+                     t_entry=t_entry)
+    if table.device.type == "cpu":
+        return tile_raster_bwd_fused_plain(
+            table, starts, counts, nproc, goff, ckpt, row_offset, g_rgb,
+            g_trans, out_trans, suffix_init, t_entry, grad_rows, cfg,
+            local_rows, row_stride)
+    g_out = torch.zeros((binning.TABLE_WIDTH, grad_rows),
+                        dtype=torch.float32, device=table.device)
+    if num_tiles:
+        _bwd_cuda(table, starts, counts, nproc, goff, ckpt, row_offset,
+                  g_rgb, g_trans, out_trans, suffix_init, t_entry, g_out,
+                  cfg, num_tiles, row_stride)
+        tile_raster_bwd_fused.launches += 1
+    return g_out
+
+
+tile_raster_bwd_fused.launches = 0
 
 
 def tile_raster_bwd_plain(table, starts, counts, nproc, ckpt, row_offset,
@@ -122,6 +188,24 @@ def tile_raster_bwd_plain(table, starts, counts, nproc, ckpt, row_offset,
                              device=table.device)
     return blend_tiles_bwd_plain(table, starts[:-1], counts, nproc, ckpt,
                                  px, py, g_rgb, g_trans, out_trans, cfg)
+
+
+def tile_raster_bwd_fused_plain(table, starts, counts, nproc, goff, ckpt,
+                                row_offset, g_rgb, g_trans, out_trans,
+                                suffix_init, t_entry, grad_rows: int,
+                                cfg: RenderConfig,
+                                local_rows: int | None = None,
+                                row_stride: int = 1):
+    """The plain PyTorch version of ``tile_raster_bwd_fused`` (same
+    signature, same results up to the order of the per-row pixel sums)."""
+    if local_rows is None:
+        local_rows = cfg.tiles_y
+    px, py = tile_pixel_grid(cfg, local_rows, int(row_offset), row_stride,
+                             device=table.device)
+    return blend_tiles_bwd_plain(
+        table, starts[:-1], counts, nproc, ckpt, px, py, g_rgb, g_trans,
+        out_trans, cfg, suffix_init=suffix_init, t_entry=t_entry, goff=goff,
+        grad_rows=grad_rows)
 
 
 def _block_grads(rows, live, t0, suffix, px, py, g_rgb, gto,
@@ -174,15 +258,20 @@ def _block_grads(rows, live, t0, suffix, px, py, g_rgb, gto,
 
 
 def blend_tiles_bwd_plain(table, start, count, nproc, ckpt, px, py, g_rgb,
-                          g_trans, out_trans, cfg: RenderConfig):
+                          g_trans, out_trans, cfg: RenderConfig,
+                          suffix_init=None, t_entry=None, goff=None,
+                          grad_rows=None):
     """Backward of ``blend_tiles_plain`` for any set of tiles: start/count
     (K,) their table segments, nproc (K,) the windows each processed, px/py
     (K, P) their pixel centres, g_rgb (K, P, 3), g_trans / out_trans
-    (K, P).  Returns g_table shaped like ``table``.
+    (K, P).  Returns g_table shaped like ``table``; with ``goff`` (K,) the
+    compact (16, grad_rows) buffer of kernel B5 instead (the row at column
+    c of tile k at goff[k] + c - base[k], its id in row 15).
 
     Walks each tile's 128-row blocks back to front, the tiles in bounded
-    groups; a block's rows start from its checkpoint (1.0 for the tile's
-    first block), and the suffix carry passes from block to block."""
+    groups; a block's rows start from its checkpoint (``t_entry``, default
+    1.0, for the tile's first block), and the suffix carry (starting from
+    ``suffix_init``, default 0) passes from block to block."""
     dev = table.device
     K, P = px.shape
     start = start.to(torch.int64)
@@ -197,8 +286,15 @@ def blend_tiles_bwd_plain(table, start, count, nproc, ckpt, px, py, g_rgb,
         * (chunk // SCAN_BLOCK)
     attrs = table[: binning.COL_RY + 1]
     gto = g_trans * out_trans
-    g_table = torch.zeros_like(table)
-    suffix = torch.zeros((K, P), dtype=torch.float32, device=dev)
+    if goff is None:
+        g_table = torch.zeros_like(table)
+        shift = torch.zeros_like(base)
+    else:
+        g_table = torch.zeros((binning.TABLE_WIDTH, grad_rows),
+                              dtype=table.dtype, device=dev)
+        shift = goff.to(torch.int64) - base
+    suffix = torch.zeros((K, P), dtype=table.dtype, device=dev) \
+        if suffix_init is None else suffix_init.clone()
     ck_cols = torch.arange(SCAN_BLOCK, device=dev)
     group = max(1, PLAIN_ELEMS.get(dev.type, 1 << 22) // (SCAN_BLOCK * P))
     for g0 in range(0, K, group):
@@ -217,15 +313,21 @@ def blend_tiles_bwd_plain(table, start, count, nproc, ckpt, px, py, g_rgb,
                 live = r[None, :] < nrow[:, None]
                 idx = torch.where(live, lo[:, None] + r[None, :], lo[:, None])
                 ck = ckpt[:, c0[:, None] + ck_cols].permute(1, 0, 2)
-                t0 = torch.where((c0 == base[a_ids])[:, None],
-                                 torch.ones((), device=dev),
+                first = torch.ones((), device=dev) if t_entry is None \
+                    else t_entry[a_ids]
+                t0 = torch.where((c0 == base[a_ids])[:, None], first,
                                  ck.reshape(len(a_ids), P))
                 grads, carry = _block_grads(
                     attrs[:, idx], live, t0, suffix[a_ids], px[a_ids],
                     py[a_ids], g_rgb[a_ids], gto[a_ids], cfg)
                 suffix[a_ids] = carry
+                dst = (idx + shift[a_ids][:, None])[live]
+                keep = dst < g_table.shape[1]  # B5 drops writes past the end
                 for c, v in grads.items():
-                    g_table[c, idx[live]] = v[live]
+                    g_table[c, dst[keep]] = v[live][keep]
+                if goff is not None:
+                    g_table[binning.COL_COUNT, dst[keep]] = \
+                        table[binning.COL_COUNT, idx[live][keep]]
             k += 1
             act = act[k < nblk[act]]
     return g_table

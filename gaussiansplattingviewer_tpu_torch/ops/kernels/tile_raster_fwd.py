@@ -1,4 +1,4 @@
-"""Kernels B1 and B2: the tile blend forward, hand-written in CUDA for
+"""Kernels B1, B2 and B4: the tile blend forward, hand-written in CUDA for
 Hopper.
 
 B1 (``tile_raster_fwd``) replaces ``gaussiansplattingviewer_tpu/ops/pallas/
@@ -6,7 +6,10 @@ tile_raster_fwd.py`` ``_fwd_kernel`` as launched by
 ``rasterize_binned_pallas_soa``; B2 (``tile_raster_fwd_train``) the same
 kernel as launched by ``rasterize_binned_pallas_train``, which also emits
 the backward's residuals (``nproc`` and the transmittance checkpoints
-``ckpt``).  Both are one template in ``csrc/tile_raster_fwd.cu``, whose
+``ckpt``); B4 (``tile_raster_fwd_seeded``) the kernel with ``seeded=True``
+as launched by ``rasterize_binned_pallas_seeded``, the fused path's
+residual pass, whose transmittance starts from pass 1's exit.  All are one
+template in ``csrc/tile_raster_fwd.cu``, whose
 header says what bounds them on an H100 (FP32 throughput: ~175 operations
 per table byte), what the design does about that (one CTA per tile, one
 thread per pixel, rows broadcast from shared memory) and why B2's
@@ -93,6 +96,53 @@ def stream_of(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _check_t_init(t_init, table, num_tiles):
+    if t_init.dtype != torch.float32 or tuple(t_init.shape) != (num_tiles,
+                                                                 256):
+        raise ValueError(f"t_init must be f32 ({num_tiles}, 256), got "
+                         f"{t_init.dtype} {tuple(t_init.shape)}")
+    if t_init.device != table.device:
+        raise ValueError("t_init must share the table's device")
+    if t_init.device.type == "cuda" and not t_init.is_contiguous():
+        raise ValueError("t_init must be contiguous")
+
+
+def _fwd_cuda(symbol, table, starts, counts, row_offset, cfg: RenderConfig,
+              num_tiles, row_stride, t_init=None, train=False):
+    """Launch one entry point of ``csrc/tile_raster_fwd.cu``: rgb, trans
+    and, with ``train``, ckpt and nproc."""
+    dev = table.device
+    rgb = torch.empty((num_tiles, 256, 3), dtype=torch.float32, device=dev)
+    trans = torch.empty((num_tiles, 256), dtype=torch.float32, device=dev)
+    outs = [rgb, trans]
+    if train:
+        nproc = torch.empty((num_tiles,), dtype=torch.int32, device=dev)
+        ckpt = torch.zeros((256 // SCAN_BLOCK, table.shape[1]),
+                           dtype=torch.float32, device=dev)
+        outs += [ckpt, nproc]
+    if num_tiles == 0:
+        return tuple(outs)
+    lib = build.load("tile_raster_fwd")
+    fn = getattr(lib, symbol)
+    fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I,
+                   _F, _F, _F, _F] + [_P] * (
+                       2 + (t_init is not None) + 2 * train + 1)
+    fn.restype = _I
+    ptrs = ([] if t_init is None else [t_init.data_ptr()]) \
+        + [rgb.data_ptr(), trans.data_ptr()] \
+        + ([nproc.data_ptr(), ckpt.data_ptr()] if train else [])
+    with torch.cuda.device(dev):
+        rc = fn(
+            table.data_ptr(), table.shape[1], starts.data_ptr(),
+            counts.data_ptr(), num_tiles, int(row_offset), cfg.tiles_x,
+            row_stride, MODE_CODE.get(cfg.mode, 0), cfg.alpha_clamp,
+            cfg.alpha_min, cfg.ball_threshold, cfg.early_stop_transmittance,
+            *ptrs, stream_of(dev),
+        )
+    build.check(lib, rc, f"{symbol} launch")
+    return tuple(outs)
+
+
 def tile_raster_fwd(table, starts, counts, row_offset, cfg: RenderConfig,
                     local_rows: int | None = None, row_stride: int = 1):
     """Kernel B1.  Blend every tile of the row set: attribute-major
@@ -109,27 +159,11 @@ def tile_raster_fwd(table, starts, counts, row_offset, cfg: RenderConfig,
     if table.device.type == "cpu":
         return tile_raster_fwd_plain(table, starts, counts, row_offset, cfg,
                                      local_rows, row_stride)
-    dev = table.device
-    rgb = torch.empty((num_tiles, 256, 3), dtype=torch.float32, device=dev)
-    trans = torch.empty((num_tiles, 256), dtype=torch.float32, device=dev)
-    if num_tiles == 0:
-        return rgb, trans
-    lib = build.load("tile_raster_fwd")
-    fn = lib.gsv_tile_raster_fwd
-    fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I,
-                   _F, _F, _F, _F, _P, _P, _P]
-    fn.restype = _I
-    with torch.cuda.device(dev):
-        rc = fn(
-            table.data_ptr(), table.shape[1], starts.data_ptr(),
-            counts.data_ptr(), num_tiles, int(row_offset), cfg.tiles_x,
-            row_stride, MODE_CODE.get(cfg.mode, 0), cfg.alpha_clamp,
-            cfg.alpha_min, cfg.ball_threshold, cfg.early_stop_transmittance,
-            rgb.data_ptr(), trans.data_ptr(), stream_of(dev),
-        )
-    build.check(lib, rc, "tile_raster_fwd launch")
-    tile_raster_fwd.launches += 1
-    return rgb, trans
+    out = _fwd_cuda("gsv_tile_raster_fwd", table, starts, counts, row_offset,
+                    cfg, num_tiles, row_stride)
+    if num_tiles:
+        tile_raster_fwd.launches += 1
+    return out
 
 
 tile_raster_fwd.launches = 0
@@ -156,34 +190,46 @@ def tile_raster_fwd_train(table, starts, counts, row_offset,
     if table.device.type == "cpu":
         return tile_raster_fwd_train_plain(table, starts, counts, row_offset,
                                            cfg, local_rows, row_stride)
-    dev = table.device
-    rgb = torch.empty((num_tiles, 256, 3), dtype=torch.float32, device=dev)
-    trans = torch.empty((num_tiles, 256), dtype=torch.float32, device=dev)
-    nproc = torch.empty((num_tiles,), dtype=torch.int32, device=dev)
-    ckpt = torch.zeros((256 // SCAN_BLOCK, table.shape[1]),
-                       dtype=torch.float32, device=dev)
-    if num_tiles == 0:
-        return rgb, trans, ckpt, nproc
-    lib = build.load("tile_raster_fwd")
-    fn = lib.gsv_tile_raster_fwd_train
-    fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I,
-                   _F, _F, _F, _F, _P, _P, _P, _P, _P]
-    fn.restype = _I
-    with torch.cuda.device(dev):
-        rc = fn(
-            table.data_ptr(), table.shape[1], starts.data_ptr(),
-            counts.data_ptr(), num_tiles, int(row_offset), cfg.tiles_x,
-            row_stride, MODE_CODE.get(cfg.mode, 0), cfg.alpha_clamp,
-            cfg.alpha_min, cfg.ball_threshold, cfg.early_stop_transmittance,
-            rgb.data_ptr(), trans.data_ptr(), nproc.data_ptr(),
-            ckpt.data_ptr(), stream_of(dev),
-        )
-    build.check(lib, rc, "tile_raster_fwd_train launch")
-    tile_raster_fwd_train.launches += 1
-    return rgb, trans, ckpt, nproc
+    out = _fwd_cuda("gsv_tile_raster_fwd_train", table, starts, counts,
+                    row_offset, cfg, num_tiles, row_stride, train=True)
+    if num_tiles:
+        tile_raster_fwd_train.launches += 1
+    return out
 
 
 tile_raster_fwd_train.launches = 0
+
+
+def tile_raster_fwd_seeded(table, starts, counts, t_init, row_offset,
+                           cfg: RenderConfig, local_rows: int | None = None,
+                           row_stride: int = 1, train: bool = False):
+    """Kernel B4, the fused path's residual pass: B1 (``train=False``) or
+    B2 (``train=True``, adding ckpt and nproc) with each pixel's
+    transmittance starting from ``t_init`` (T, 256) f32 instead of 1.0;
+    rgb accumulates from zero.  The tile's first block keeps no
+    checkpoint: its entering transmittance is ``t_init``.
+
+    CUDA tensors launch the kernel (one launch, counted in
+    ``tile_raster_fwd_seeded.launches`` for either variant); CPU tensors
+    run the plain version."""
+    if local_rows is None:
+        local_rows = cfg.tiles_y
+    num_tiles = local_rows * cfg.tiles_x
+    check_inputs(table, starts, counts, cfg, num_tiles)
+    _check_t_init(t_init, table, num_tiles)
+    if table.device.type == "cpu":
+        return tile_raster_fwd_seeded_plain(table, starts, counts, t_init,
+                                            row_offset, cfg, local_rows,
+                                            row_stride, train)
+    symbol = "gsv_tile_raster_fwd_seeded" + ("_train" if train else "")
+    out = _fwd_cuda(symbol, table, starts, counts, row_offset, cfg,
+                    num_tiles, row_stride, t_init=t_init, train=train)
+    if num_tiles:
+        tile_raster_fwd_seeded.launches += 1
+    return out
+
+
+tile_raster_fwd_seeded.launches = 0
 
 
 def tile_raster_fwd_plain(table, starts, counts, row_offset,
@@ -191,12 +237,9 @@ def tile_raster_fwd_plain(table, starts, counts, row_offset,
                           row_stride: int = 1):
     """The plain PyTorch version of ``tile_raster_fwd`` (same signature,
     same results up to summation order)."""
-    if local_rows is None:
-        local_rows = cfg.tiles_y
-    px, py = tile_pixel_grid(cfg, local_rows, int(row_offset), row_stride,
-                             device=table.device)
-    rgb, trans, _ = blend_tiles_plain(table, starts[:-1], counts, px, py, cfg)
-    return rgb, trans
+    return tile_raster_fwd_seeded_plain(table, starts, counts, None,
+                                        row_offset, cfg, local_rows,
+                                        row_stride)
 
 
 def tile_raster_fwd_train_plain(table, starts, counts, row_offset,
@@ -205,15 +248,30 @@ def tile_raster_fwd_train_plain(table, starts, counts, row_offset,
                                 row_stride: int = 1):
     """The plain PyTorch version of ``tile_raster_fwd_train``: T, ckpt and
     nproc equal the kernel's bit for bit, rgb up to summation order."""
+    return tile_raster_fwd_seeded_plain(table, starts, counts, None,
+                                        row_offset, cfg, local_rows,
+                                        row_stride, train=True)
+
+
+def tile_raster_fwd_seeded_plain(table, starts, counts, t_init, row_offset,
+                                 cfg: RenderConfig,
+                                 local_rows: int | None = None,
+                                 row_stride: int = 1, train: bool = False):
+    """The plain PyTorch version of ``tile_raster_fwd_seeded`` (T, ckpt
+    and nproc bit for bit, rgb up to summation order); ``t_init`` None is
+    1.0, the plain B1 / B2."""
     if local_rows is None:
         local_rows = cfg.tiles_y
     px, py = tile_pixel_grid(cfg, local_rows, int(row_offset), row_stride,
                              device=table.device)
     ckpt = torch.zeros((256 // SCAN_BLOCK, table.shape[1]),
-                       dtype=torch.float32, device=table.device)
+                       dtype=torch.float32, device=table.device) \
+        if train else None
     rgb, trans, nproc = blend_tiles_plain(table, starts[:-1], counts, px, py,
-                                          cfg, ckpt=ckpt)
-    return rgb, trans, ckpt, nproc.to(torch.int32)
+                                          cfg, ckpt=ckpt, t_init=t_init)
+    if train:
+        return rgb, trans, ckpt, nproc.to(torch.int32)
+    return rgb, trans
 
 
 def fragments(rows, live, px, py, cfg: RenderConfig):
@@ -285,10 +343,11 @@ def _put_ckpt(ckpt, cols, t_blk):
 
 
 def blend_tiles_plain(table, start, count, px, py, cfg: RenderConfig,
-                      ckpt=None):
+                      ckpt=None, t_init=None):
     """Blend any set of tiles: start/count (K,) their table segments,
-    px/py (K, P) their pixel centres.  Returns rgb (K, P, 3), trans (K, P)
-    and the windows each tile processed (K,) int64.
+    px/py (K, P) their pixel centres, t_init (K, P) their entering
+    transmittance (None: 1.0).  Returns rgb (K, P, 3), trans (K, P) and
+    the windows each tile processed (K,) int64.
 
     Mirrors the kernel: 256-row windows aligned to 128 rows, the tile-wide
     stop after each window.  Tiles go in bounded groups so memory stays
@@ -310,12 +369,16 @@ def blend_tiles_plain(table, start, count, px, py, cfg: RenderConfig,
         torch.zeros_like(end))
     attrs = table[: binning.COL_RY + 1]
     rgb = torch.zeros((K, P, 3), dtype=torch.float32, device=dev)
-    trans = torch.ones((K, P), dtype=torch.float32, device=dev)
+    trans = torch.ones((K, P), dtype=torch.float32, device=dev) \
+        if t_init is None else t_init.clone()
     nproc = torch.zeros((K,), dtype=torch.int64, device=dev)
     group = max(1, PLAIN_ELEMS.get(dev.type, 1 << 22) // (chunk * P))
     for g0 in range(0, K, group):
         ids = torch.arange(g0, min(g0 + group, K), device=dev)
-        act = ids[nchunks[ids] > 0]
+        # the kernel tests the stop before every window, the first included
+        # (it can fire there only when seeded)
+        act = ids[(nchunks[ids] > 0) & (
+            trans[ids].amax(dim=1) > cfg.early_stop_transmittance)]
         ci = 0
         while act.numel():
             w0 = base[act] + ci * chunk

@@ -2,6 +2,8 @@
 
 project -> bin_splats (ops/binning.py) -> blend_tiles (ops/blend.py, kernel
 B1 on the card) -> tiles assembled into the image, background composited.
+cfg.fused_grad takes the fused prefix/residual path instead:
+bin_splats_presort -> blend_fused (ops/fused.py, kernels B1/B2, B4, B5).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import torch
 from gaussiansplattingviewer_tpu_torch.config import RenderConfig
 from gaussiansplattingviewer_tpu_torch.ops import binning
 from gaussiansplattingviewer_tpu_torch.ops.blend import blend_tiles
+from gaussiansplattingviewer_tpu_torch.ops.fused import blend_fused
 from gaussiansplattingviewer_tpu_torch.ops.projection import ProjectedSplats
 
 
@@ -41,20 +44,34 @@ def debug_counters(splats: ProjectedSplats, img):
 
 def rasterize_tiles(splats: ProjectedSplats, cfg: RenderConfig,
                     return_aux: bool = False):
-    """Tile-binned render of projected splats -> (H, W, 3) image."""
-    binned = binning.bin_splats(splats, cfg)
-    rgb_tiles, trans_tiles = blend_tiles(
-        cfg, cfg.tiles_y, 1, binned.table, binned.tile_starts,
-        binned.tile_counts, 0,
-    )
+    """Tile-binned render of projected splats -> (H, W, 3) image.  The
+    fused path's aux adds grad_rows_needed and grad_rows_dropped (0 outside
+    autograd), and its ``truncated`` sums both passes' truncation."""
+    if cfg.fused_grad:
+        pres = binning.bin_splats_presort(splats, cfg)
+        rgb_tiles, trans_tiles, diag = blend_fused(
+            cfg, cfg.tiles_y, 1, pres.table_src, pres.rows_sorted,
+            pres.starts_full, 0)
+        num_dup, overflow = pres.num_duplicates, pres.overflow
+        truncated = (diag[0] + diag[1]).to(torch.int32)
+        extra = {"grad_rows_needed": diag[2], "grad_rows_dropped": diag[3]}
+    else:
+        binned = binning.bin_splats(splats, cfg)
+        rgb_tiles, trans_tiles = blend_tiles(
+            cfg, cfg.tiles_y, 1, binned.table, binned.tile_starts,
+            binned.tile_counts, 0,
+        )
+        num_dup, overflow = binned.num_duplicates, binned.overflow
+        truncated, extra = binned.truncated, {}
     img, trans = _tiles_to_image(rgb_tiles, trans_tiles, cfg)
     img = img + cfg.background * trans[..., None]
     if return_aux:
         aux = {
             "transmittance": trans,
-            "num_duplicates": binned.num_duplicates,
-            "overflow": binned.overflow,
-            "truncated": binned.truncated,
+            "num_duplicates": num_dup,
+            "overflow": overflow,
+            "truncated": truncated,
+            **extra,
         }
         if cfg.debug:
             aux.update(debug_counters(splats, img))

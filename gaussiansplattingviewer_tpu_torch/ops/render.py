@@ -62,7 +62,8 @@ def render_with_aux(scene: GaussianData, view, proj, cam_pos,
                     device=None):
     """Like render(), also returning {"transmittance": (H, W)} and, for the
     kernel backend, the binning diagnostics num_duplicates / overflow /
-    truncated."""
+    truncated (and, with cfg.fused_grad, grad_rows_needed /
+    grad_rows_dropped)."""
     return _render(scene, view, proj, cam_pos, cfg, backend, device, True)
 
 

@@ -1,6 +1,6 @@
-"""PyTorch port on the card: each CUDA kernel (B1, B2, B3) against its plain
-PyTorch version on the same inputs, and a render gradient on the card
-against the same gradient on the CPU.
+"""PyTorch port on the card: each CUDA kernel (B1-B5) against its plain
+PyTorch version on the same inputs, and render gradients (classic and
+fused) on the card against the same gradients on the CPU.
 
 Imports neither JAX nor tests/conftest.py's fixtures, so it also runs where
 JAX is not installed:
@@ -189,6 +189,113 @@ def test_render_gradient_on_card_matches_cpu():
     the card's index_add_ adds in another order."""
     dev = _card()
     cfg = RenderConfig(width=320, height=192, grad_fold_bf16=False)
+    scene = random_scene(3000, sh_degree=3, seed=9, extent=2.0,
+                         mean_scale=0.05)
+    cam = Camera(h=cfg.height, w=cfg.width)
+    cam.fovy = 1.0
+    eye = np.array([0.0, 0.0, 5.0], np.float32)
+    view = tf.look_at(eye, [0, 0, 0], [0, -1, 0])
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        sc = scene.to(d)
+        leaves = [sc.xyz, sc.rot, sc.scale, sc.opacity, sc.sh]
+        for t in leaves:
+            t.requires_grad_(True)
+        img = render(sc, view, cam.get_project_matrix(), eye, cfg, device=d)
+        (img * img).sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for name, g_card, g_cpu in zip(("xyz", "rot", "scale", "opacity", "sh"),
+                                   *grads):
+        scale = float(g_cpu.abs().max())
+        assert scale > 0, name
+        err = float((g_card - g_cpu).abs().max())
+        print(f"{name}: max|card - cpu| / max|g| = {err / scale:.3e}")
+        assert err <= 1e-4 * scale, name
+
+
+def _seeded_args(dev, cfg, opacity=None, band=None):
+    """B4's inputs: a binned table (row 15 a distinct id per column) and a
+    seeded t_init, some tiles entering already saturated."""
+    table, starts, counts, row_offset, cfg, *rest = _train_args(
+        dev, cfg, opacity, band)
+    table = table.detach().clone()
+    table[15] = torch.arange(table.shape[1], dtype=torch.float32,
+                             device=dev)
+    num_tiles = counts.shape[0]
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    t_init = 0.2 + 0.8 * torch.rand((num_tiles, 256), generator=gen)
+    t_init[::7] = 5e-5
+    return (table, starts, counts, t_init.to(dev), row_offset, cfg, *rest)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("mode,opacity,band", [
+    *((m, o, None) for m, o in CASES), (RenderMode.SH3, None, BAND)])
+def test_tile_raster_fwd_seeded_matches_plain(mode, opacity, band, train):
+    """B4: rgb at 1e-5 * max(1, |plain|); T, nproc and the whole ckpt
+    buffer equal."""
+    dev = _card()
+    cfg = RenderConfig(width=320, height=192, mode=mode)
+    args = _seeded_args(dev, cfg, opacity, band)
+    before = b1.tile_raster_fwd_seeded.launches
+    out = b1.tile_raster_fwd_seeded(*args, train=train)
+    torch.cuda.synchronize()
+    assert b1.tile_raster_fwd_seeded.launches == before + 1
+    plain = b1.tile_raster_fwd_seeded_plain(*args, train=train)
+    assert _close(out[0], plain[0])
+    for got, want in zip(out[1:], plain[1:]):
+        assert torch.equal(got, want)
+
+
+def _fused_bwd_args(dev, cfg, opacity=None, band=None):
+    from gaussiansplattingviewer_tpu_torch.ops.fused import _regions
+
+    args = _seeded_args(dev, cfg, opacity, band)
+    table, starts, counts, t_init, row_offset, _, *rest = args
+    _, trans, ckpt, nproc = b1.tile_raster_fwd_seeded(*args, train=True)
+    num_tiles = counts.shape[0]
+    np_c, goff, need, _ = _regions(starts, counts, nproc, 1 << 30, num_tiles)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    g_rgb = torch.randn((*trans.shape, 3), generator=gen).to(dev)
+    g_trans = torch.randn(tuple(trans.shape), generator=gen).to(dev)
+    suffix = torch.randn(tuple(trans.shape), generator=gen).to(dev)
+    return (table, starts, counts, np_c, goff, ckpt, row_offset, g_rgb,
+            g_trans, trans, suffix, t_init, int(need) + 512, cfg, *rest)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,opacity,band", [
+    *((m, o, None) for m, o in CASES), (RenderMode.SH3, None, BAND)])
+def test_tile_raster_bwd_fused_matches_plain(mode, opacity, band):
+    """B5 per row within 1e-5 * max|plain row|, the id row equal; the
+    same bits from run to run."""
+    dev = _card()
+    cfg = RenderConfig(width=320, height=192, mode=mode)
+    args = _fused_bwd_args(dev, cfg, opacity, band)
+    before = b3.tile_raster_bwd_fused.launches
+    g = b3.tile_raster_bwd_fused(*args)
+    torch.cuda.synchronize()
+    assert b3.tile_raster_bwd_fused.launches == before + 1
+    pg = b3.tile_raster_bwd_fused_plain(*args)
+    assert float(pg[:9].abs().max()) > 0
+    assert torch.equal(g[15], pg[15])
+    for c in range(15):
+        scale = float(pg[c].abs().max())
+        assert float((g[c] - pg[c]).abs().max()) <= 1e-5 * scale, c
+    assert torch.equal(g, b3.tile_raster_bwd_fused(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prefix", [0, 256])
+def test_fused_render_gradient_on_card_matches_cpu(prefix):
+    """The fused path (B2, B4, B5 twice, the id fold) on the card against
+    the same gradient on the CPU, per field within 1e-4 * max|g| (the
+    classic test's budget and reasons; index_add_ adds in f64 here)."""
+    dev = _card()
+    cfg = RenderConfig(width=320, height=192, grad_fold_bf16=False,
+                       fused_grad=True, prefix_rows=prefix,
+                       residual_budget_rows=65536 if prefix else 0)
     scene = random_scene(3000, sh_degree=3, seed=9, extent=2.0,
                          mean_scale=0.05)
     cam = Camera(h=cfg.height, w=cfg.width)

@@ -113,5 +113,8 @@ def test_config_carries_across():
         jcfg.tiles_x, jcfg.tiles_y, jcfg.num_tiles)
     assert pt.RenderConfig(**dataclasses.asdict(JaxConfig())) == \
         pt.RenderConfig()
-    with pytest.raises(NotImplementedError, match="fused"):
-        pt.RenderConfig(fused_grad=True)
+    fused = JaxConfig(fused_grad=True, prefix_rows=512,
+                      prefix_budget_rows=8192, residual_budget_rows=4096,
+                      grad_budget_rows=9216, grad_residual_budget_rows=2048)
+    assert dataclasses.asdict(pt.RenderConfig(**dataclasses.asdict(
+        fused))) == dataclasses.asdict(fused)
