@@ -7,7 +7,9 @@ on one CUDA card.
 Phases, each fatal on failure:
   1. card identity (nvidia-smi name and power limit);
   2. build every CUDA kernel from csrc/ (one nvcc per source, started
-     together) and print nvcc's -Xptxas -v report;
+     together), print nvcc's -Xptxas -v report and, per backward kernel
+     (B3, B5) and mode, its registers, spills, shared memory per CTA and
+     CTAs per SM as built;
   3. every kernel (B1 inference forward, B2 train forward, B3 blend
      backward, B4 seeded forward in both variants, B5 compact backward)
      against its plain PyTorch version on the 10k-splat golden scene at
@@ -21,7 +23,8 @@ Phases, each fatal on failure:
   5. the training step at full size (the JAX bench.py default step: loss
      sum(img^2), SGD at lr 1e-12): CUDA-event stage times inside real
      steps, B2 and B3 timed alone and held against their plain versions on
-     a step's own table, the device's busy share (torch.profiler), 5 timed
+     a step's own table (B3 also against its own second launch, bit for
+     bit), the device's busy share (torch.profiler), 5 timed
      steps through render() + backward(), their launch counts and
      gradients;
   6. the trainer through its CLI (apps.train.main, 3 self-distill steps at
@@ -34,7 +37,8 @@ Phases, each fatal on failure:
      step), 5 classic steps on the same scene and pose, fused (K = 0 and
      the tuned K) and classic again against classic gradients with the
      f32 fold, 3 served frames (B1 1, B4 1 each), and B4/B5 timed alone
-     against their plain versions on a step's own inputs;
+     against their plain versions on a step's own inputs (B5 also against
+     its own second launch, bit for bit);
   9. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
@@ -606,6 +610,7 @@ def garden_cell(chk, zero_counts, counts, no_launch):
     ntile = cfg.num_tiles
     seeded = (f["table2"], f["rstarts_c"], f["rcounts"], f["trans1"], 0,
               cfg)
+    b1.tile_raster_fwd_seeded(*seeded, train=True)  # warm-up
     ms_b4, (rgb2, trans2, ckpt2, nproc2) = cuda_ms(
         lambda: b1.tile_raster_fwd_seeded(*seeded, train=True), 10)
     ms_b4_plain, plain = host_ms(
@@ -635,7 +640,10 @@ def garden_cell(chk, zero_counts, counts, no_launch):
     b5_bytes = 0
     seg_bytes = (2 * ntile + 1) * 4
     for name, args in passes.items():
+        b3.tile_raster_bwd_fused(*args)  # warm-up
         ms, g = cuda_ms(lambda: b3.tile_raster_bwd_fused(*args), 5)
+        chk.equal("B5", f"garden step B5 {name} repeat", g,
+                  b3.tile_raster_bwd_fused(*args))
         ms_plain, pg = host_ms(lambda: b3.tile_raster_bwd_fused_plain(*args))
         chk.columns("B5", f"garden step B5 {name}", g, pg)
         del g, pg
@@ -755,6 +763,13 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
     for name in kernels:
         build.load(name)
+    for key, fused in (("B3", False), ("B5", True)):
+        for mode in (RenderMode.SH3, RenderMode.BILLBOARD,
+                     RenderMode.FLAT_BALL, RenderMode.GAUSSIAN_BALL):
+            occ = b3.kernel_occupancy(mode, fused)
+            log(f"[build] {key} {mode.name}: {occ['registers']} registers, "
+                f"{occ['local_bytes']} B spilled, {occ['smem_bytes']} B "
+                f"shared per CTA, {occ['ctas_per_sm']} CTAs per SM")
 
     chk = Checks()
 
@@ -921,7 +936,10 @@ def main() -> int:
     g_rgb, g_trans = image_cotangents(rgb, trans, cfg4)
     bwd = (targs[0], bs.tile_starts, bs.tile_counts, nproc, ckpt, 0,
            g_rgb, g_trans, trans, cfg4)
+    b3.tile_raster_bwd(*bwd)  # warm-up
     ms_b3, g_table = cuda_ms(lambda: b3.tile_raster_bwd(*bwd), 5)
+    chk.equal("B3", "1M 1080p train step B3 repeat", g_table,
+              b3.tile_raster_bwd(*bwd))
     log(f"[train] kernels alone (CUDA events): B2 {ms_b2:.3f} ms, B3 "
         f"{ms_b3:.3f} ms")
 

@@ -8,9 +8,10 @@ with fused=True as launched by ``blend_bwd_fused``, the fused path's
 compact backward (seeded suffix and entering transmittance, gradients at
 per-tile compact offsets with the splat id beside them).  The CUDA source
 (``csrc/tile_raster_bwd.cu``) gives the gradient math, the traversal (back
-to front from the forward's checkpoints), the fixed-order reduction, what
-bounds it on an H100 (FP32 throughput) and what its design does about
-that.
+to front from the forward's checkpoints), the fixed-order reduction, the
+exact warp cull, what bounds it on an H100 (FP32 issue) and what its
+design does about that.  ``warp_cull_plain`` is the plain mirror of the
+cull, ``kernel_occupancy`` reports the kernels' resources as built.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``, same signature and semantics) for CPU
@@ -42,6 +43,9 @@ from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the kernels' warp footprints: band w is tile rows 4w .. 4w+3, i.e.
+# pixels 64w .. 64w+63
+BANDS = 4
 
 
 def _check_residuals(table, nproc, ckpt, g_rgb, g_trans, out_trans,
@@ -109,6 +113,11 @@ def _bwd_cuda(table, starts, counts, nproc, goff, ckpt, row_offset, g_rgb,
               cfg: RenderConfig, num_tiles, row_stride):
     """Launch ``csrc/tile_raster_bwd.cu``: B3 when ``goff`` is None, else
     B5 into the compact buffer ``g_out``."""
+    if not cfg.alpha_clamp < 1.0:
+        raise ValueError(
+            f"the backward kernels take alpha_clamp < 1 (their divisor "
+            f"max(1 - alpha, 1 - alpha_clamp) must be nonzero), got "
+            f"{cfg.alpha_clamp}")
     dev = table.device
     lib = build.load("tile_raster_bwd")
     fused = goff is not None
@@ -129,6 +138,22 @@ def _bwd_cuda(table, starts, counts, nproc, goff, ckpt, row_offset, g_rgb,
                 1.0 - cfg.alpha_clamp, cfg.alpha_min, cfg.ball_threshold,
                 *tail)
     build.check(lib, rc, f"{fn.__name__} launch")
+
+
+def kernel_occupancy(mode: RenderMode, fused: bool) -> dict:
+    """Resources of the B3 (``fused`` False) or B5 instantiation for
+    ``mode`` as built: registers and spilled bytes per thread, shared
+    memory per CTA, and CTAs one SM holds at once.  Needs the card."""
+    lib = build.load("tile_raster_bwd")
+    fn = lib.gsv_tile_raster_bwd_occupancy
+    fn.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 4
+    fn.restype = _I
+    vals = [_I() for _ in range(4)]
+    rc = fn(MODE_CODE.get(mode, 0), int(fused),
+            *(ctypes.byref(v) for v in vals))
+    build.check(lib, rc, "gsv_tile_raster_bwd_occupancy")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "ctas_per_sm"), (v.value for v in vals)))
 
 
 def tile_raster_bwd_fused(table, starts, counts, nproc, goff, ckpt,
@@ -208,17 +233,47 @@ def tile_raster_bwd_fused_plain(table, starts, counts, nproc, goff, ckpt,
         grad_rows=grad_rows)
 
 
+def warp_cull_plain(rows, live, px, py):
+    """The (row, band) pairs the kernels keep: (A, R, BANDS) bool for A
+    tiles' rows (11, A, R), live (A, R), and their pixel centres px / py
+    (A, 256).
+
+    The kernels' own rect test, fabsf(px - cx) <= rx and fabsf(py - cy) <=
+    ry, at each of the tile's 16 column centres and each band's 4 row
+    centres: a band is the product of the two, so a row reaches one of its
+    pixels iff it reaches one of its columns and one of its rows.  Outside
+    the kept pairs every fragment has alpha == 0."""
+    b = binning
+    a_n, r_n = live.shape
+    col = lambda c: rows[c][:, :, None]  # noqa: E731  (A, R, 1)
+    xs = px[:, None, :16]                # the tile's column centres
+    ys = py[:, None, ::16]               # its row centres
+    x_hit = (torch.abs(xs - col(b.COL_CX)) <= col(b.COL_RX)).any(dim=2)
+    y_hit = (torch.abs(ys - col(b.COL_CY)) <= col(b.COL_RY)).reshape(
+        a_n, r_n, BANDS, -1).any(dim=3)
+    return x_hit[:, :, None] & y_hit & live[:, :, None]
+
+
 def _block_grads(rows, live, t0, suffix, px, py, g_rgb, gto,
-                 cfg: RenderConfig):
+                 cfg: RenderConfig, cull=False):
     """Gradients of one 128-row block of A tiles, back to front.
 
     rows (11, A, R), live (A, R), t0 / suffix / gto (A, P) the block's
     entering T, the suffix carry from later rows and g_T * T_fin; g_rgb
-    (A, P, 3).  Returns ({table column: (A, R) per-row sum}, new carry)."""
+    (A, P, 3).  With ``cull`` every fragment outside the pairs
+    ``warp_cull_plain`` keeps is zeroed (alpha 0, not unclamped), as the
+    kernels skip them.  Returns ({table column: (A, R) per-row sum}, new
+    carry)."""
     b = binning
     col = lambda c: rows[c][:, :, None]  # noqa: E731  (A, R, 1)
     zero = torch.zeros((), dtype=torch.float32, device=rows.device)
     dx, dy, gauss, alpha, unclamped = fragments(rows, live, px, py, cfg)
+    if cull:
+        kept = warp_cull_plain(rows, live, px, py).repeat_interleave(
+            px.shape[1] // BANDS, dim=2)
+        alpha = torch.where(kept, alpha, zero)
+        if unclamped is not None:
+            unclamped = unclamped & kept
     # t_i: the kernel's sequential product from the block's checkpoint
     t_i = torch.cumprod(torch.cat([t0[:, None, :], 1.0 - alpha], dim=1),
                         dim=1)[:, :-1]
@@ -260,7 +315,7 @@ def _block_grads(rows, live, t0, suffix, px, py, g_rgb, gto,
 def blend_tiles_bwd_plain(table, start, count, nproc, ckpt, px, py, g_rgb,
                           g_trans, out_trans, cfg: RenderConfig,
                           suffix_init=None, t_entry=None, goff=None,
-                          grad_rows=None):
+                          grad_rows=None, cull=False):
     """Backward of ``blend_tiles_plain`` for any set of tiles: start/count
     (K,) their table segments, nproc (K,) the windows each processed, px/py
     (K, P) their pixel centres, g_rgb (K, P, 3), g_trans / out_trans
@@ -271,7 +326,9 @@ def blend_tiles_bwd_plain(table, start, count, nproc, ckpt, px, py, g_rgb,
     Walks each tile's 128-row blocks back to front, the tiles in bounded
     groups; a block's rows start from its checkpoint (``t_entry``, default
     1.0, for the tile's first block), and the suffix carry (starting from
-    ``suffix_init``, default 0) passes from block to block."""
+    ``suffix_init``, default 0) passes from block to block.  ``cull``
+    zeroes the fragments the kernels' warp cull skips (``_block_grads``);
+    the result is the same bits."""
     dev = table.device
     K, P = px.shape
     start = start.to(torch.int64)
@@ -319,7 +376,7 @@ def blend_tiles_bwd_plain(table, start, count, nproc, ckpt, px, py, g_rgb,
                                  ck.reshape(len(a_ids), P))
                 grads, carry = _block_grads(
                     attrs[:, idx], live, t0, suffix[a_ids], px[a_ids],
-                    py[a_ids], g_rgb[a_ids], gto[a_ids], cfg)
+                    py[a_ids], g_rgb[a_ids], gto[a_ids], cfg, cull)
                 suffix[a_ids] = carry
                 dst = (idx + shift[a_ids][:, None])[live]
                 keep = dst < g_table.shape[1]  # B5 drops writes past the end

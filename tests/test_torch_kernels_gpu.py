@@ -318,3 +318,103 @@ def test_fused_render_gradient_on_card_matches_cpu(prefix):
         err = float((g_card - g_cpu).abs().max())
         print(f"{name}: max|card - cpu| / max|g| = {err / scale:.3e}")
         assert err <= 1e-4 * scale, name
+
+
+def _scaled_bwd_args(dev, cfg, mean_scale):
+    """B3's inputs on a scene of large (every band live on most rows) or
+    tiny (most (row, band) pairs culled) splats."""
+    scene = random_scene(3000, sh_degree=3, seed=12, extent=2.0,
+                         mean_scale=mean_scale)
+    cam = Camera(h=cfg.height, w=cfg.width)
+    cam.fovy = 1.0
+    eye = np.array([0.2, 0.1, 5.0], np.float32)
+    view = tf.look_at(eye, [0, 0, 0], [0, -1, 0])
+    splats = project(scene.to(dev), view, cam.get_project_matrix(), eye, cfg)
+    bs = binning.bin_splats(splats, cfg)
+    args = (bs.table, bs.tile_starts, bs.tile_counts, 0, cfg)
+    _, trans, ckpt, nproc = b1.tile_raster_fwd_train(*args)
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    g_rgb = torch.randn((*trans.shape, 3), generator=gen).to(dev)
+    g_trans = torch.randn(tuple(trans.shape), generator=gen).to(dev)
+    return (bs.table, bs.tile_starts, bs.tile_counts, nproc, ckpt, 0, g_rgb,
+            g_trans, trans, cfg)
+
+
+def _assert_rows_close(g, pg, ncols):
+    for c in range(ncols):
+        scale = float(pg[c].abs().max())
+        assert float((g[c] - pg[c]).abs().max()) <= 1e-5 * scale, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mean_scale", [0.3, 0.01], ids=["large", "tiny"])
+def test_tile_raster_bwd_splat_sizes_match_plain(mean_scale):
+    """B3 and B5 where the warp cull keeps nearly every (row, band) pair
+    and where it drops most of them: per row within 1e-5 * max|plain row|,
+    and the same bits from launch to launch."""
+    from gaussiansplattingviewer_tpu_torch.ops.fused import _regions
+
+    dev = _card()
+    cfg = RenderConfig(width=320, height=192)
+    args = _scaled_bwd_args(dev, cfg, mean_scale)
+    g = b3.tile_raster_bwd(*args)
+    torch.cuda.synchronize()
+    pg = b3.tile_raster_bwd_plain(*args)
+    assert float(pg.abs().max()) > 0
+    _assert_rows_close(g, pg, 16)
+    assert torch.equal(g, b3.tile_raster_bwd(*args))
+
+    table, starts, counts, nproc, ckpt, _, g_rgb, g_trans, trans, _ = args
+    table = table.detach().clone()
+    table[15] = torch.arange(table.shape[1], dtype=torch.float32, device=dev)
+    np_c, goff, need, _ = _regions(starts, counts, nproc, 1 << 30,
+                                   counts.shape[0])
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    suffix = torch.randn(tuple(trans.shape), generator=gen).to(dev)
+    fargs = (table, starts, counts, np_c, goff, ckpt, 0, g_rgb, g_trans,
+             trans, suffix, torch.ones_like(trans), int(need) + 256, cfg)
+    g5 = b3.tile_raster_bwd_fused(*fargs)
+    torch.cuda.synchronize()
+    pg5 = b3.tile_raster_bwd_fused_plain(*fargs)
+    assert torch.equal(g5[15], pg5[15])
+    _assert_rows_close(g5, pg5, 15)
+    assert torch.equal(g5, b3.tile_raster_bwd_fused(*fargs))
+
+
+@pytest.mark.gpu
+def test_tile_raster_bwd_fused_drops_writes_past_budget():
+    """B5 with grad_rows at half of what the tiles' regions need: writes
+    past the budget are dropped (a tile straddling it keeps its first
+    columns), as in the plain version."""
+    from gaussiansplattingviewer_tpu_torch.ops.fused import _regions
+
+    dev = _card()
+    cfg = RenderConfig(width=320, height=192)
+    args = _fused_bwd_args(dev, cfg)
+    table, starts, counts, np_c, goff, *rest = args
+    need = int(_regions(starts, counts, np_c, 1 << 30, counts.shape[0])[2])
+    budget = need // 2 + 37  # not a multiple of 256: a region straddles it
+    small = (*args[:12], budget, *args[13:])
+    g = b3.tile_raster_bwd_fused(*small)
+    torch.cuda.synchronize()
+    pg = b3.tile_raster_bwd_fused_plain(*small)
+    assert g.shape == (16, budget)
+    assert torch.equal(g[15], pg[15])
+    _assert_rows_close(g, pg, 15)
+    full = b3.tile_raster_bwd_fused(*args)
+    assert torch.equal(g, full[:, :budget])
+    assert float(full[:, budget:].abs().max()) > 0  # something was dropped
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_tile_raster_bwd_resources(fused):
+    """The backward template as built: no spills, the 55,824-byte shared
+    memory layout of csrc/tile_raster_bwd.cu, and 4 CTAs per SM."""
+    _card()
+    for mode in (RenderMode.SH3, RenderMode.BILLBOARD):
+        occ = b3.kernel_occupancy(mode, fused)
+        print(mode, occ)
+        assert occ["local_bytes"] == 0, occ
+        assert occ["smem_bytes"] == 55824, occ
+        assert occ["ctas_per_sm"] == 4, occ
