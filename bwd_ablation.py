@@ -56,12 +56,16 @@ VARIANTS = {
 }
 
 
-def build_variants(tmp: Path, sources):
+def build_variants(tmp: Path, sources, variants=VARIANTS,
+                   source="tile_raster_bwd"):
+    """Compile csrc/<source>.cu with each of ``variants``' text patches (or
+    the text in ``sources`` under the variant's name), all nvcc processes
+    started together; returns {variant: loaded library}."""
     from gaussiansplattingviewer_tpu_torch.ops.kernels import build
 
-    src = (build.SRC_DIR / "tile_raster_bwd.cu").read_text()
+    src = (build.SRC_DIR / f"{source}.cu").read_text()
     procs = {}
-    for name, (patches, _) in VARIANTS.items():
+    for name, (patches, _) in variants.items():
         text = sources.get(name, src)
         for old, new in patches:
             if text.count(old) != 1:
@@ -88,9 +92,13 @@ def build_variants(tmp: Path, sources):
     return libs
 
 
-def shares(tag, table, starts, nproc, cfg, ntiles=384):
+def shares(tag, table, starts, nproc, cfg, ntiles=384, sizes=(16, 128)):
+    """Over a sample of tiles: the shares of blended (row, band) pairs the
+    warp cull keeps and that have a lit pixel, and how evenly the bands
+    share the lit rows of each ``sizes``-row block (aligned as the
+    kernels' windows)."""
     from gaussiansplattingviewer_tpu_torch.ops.kernels import (
-        tile_raster_bwd as b3,
+        tile_raster_fwd as b1,
     )
     from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
         fragments,
@@ -106,61 +114,64 @@ def shares(tag, table, starts, nproc, cfg, ntiles=384):
     st = starts[:-1].long()[ids][:, None]
     rows = table[:11, torch.where(live, st + r, st)]
     px, py = tile_pixel_grid(cfg, cfg.tiles_y, device=dev)
-    kept = b3.warp_cull_plain(rows, live, px[ids], py[ids])
+    kept = b1.warp_cull_plain(rows, live, px[ids], py[ids])
     alpha = fragments(rows, live, px[ids], py[ids], cfg)[3]
-    lit = (alpha > 0).reshape(*alpha.shape[:2], b3.BANDS, -1).any(-1)
-    n = float(live.sum()) * b3.BANDS
+    lit = (alpha > 0).reshape(*alpha.shape[:2], b1.BANDS, -1).any(-1)
+    n = float(live.sum()) * b1.BANDS
     cs.log(f"[share] {tag}: of {int(n)} blended (row, band) pairs in "
            f"{ntiles} tiles the cull keeps {float(kept.sum()) / n:.4f}, "
            f"{float(lit.sum()) / n:.4f} have a lit pixel")
     off = st + r[None] - st // 128 * 128
-    for size in (16, 128):
+    for size in sizes:
         sb = torch.where(live, off // size, 0)
-        cnt = torch.zeros((len(ids), int(sb.max()) + 1, b3.BANDS),
+        cnt = torch.zeros((len(ids), int(sb.max()) + 1, b1.BANDS),
                           device=dev)
-        cnt.scatter_add_(1, sb[:, :, None].expand(-1, -1, b3.BANDS),
+        cnt.scatter_add_(1, sb[:, :, None].expand(-1, -1, b1.BANDS),
                          (lit & live[:, :, None]).float())
         cs.log(f"[share] {tag}: band balance over {size}-row sub-blocks "
                f"(sum of mean / sum of max lit rows per band) "
                f"{float(cnt.mean(-1).sum() / cnt.max(-1).values.sum()):.4f}")
 
 
-def inputs(dev):
-    """B3's arguments at the 1M step and B5's at the garden step's pass 1."""
+def _pose(w, h, z):
+    from gaussiansplattingviewer_tpu_torch.utils import transforms as tf
+    from gaussiansplattingviewer_tpu_torch.utils.camera import Camera
+
+    cam = Camera(h=h, w=w)
+    cam.fovy = 1.0
+    eye = np.array([0.0, 0.0, z], np.float32)
+    return tf.look_at(eye, [0, 0, 0], [0, -1, 0]), cam.get_project_matrix(), \
+        eye
+
+
+def full_table(dev):
+    """(binned splats, cfg) of the 1M-splat bench scene at 1920x1080
+    (chip_smoke.py phases 4 and 5)."""
+    from gaussiansplattingviewer_tpu_torch.config import RenderConfig
+    from gaussiansplattingviewer_tpu_torch.models import random_scene
+    from gaussiansplattingviewer_tpu_torch.ops import binning
+    from gaussiansplattingviewer_tpu_torch.ops.projection import project
+
+    cfg = RenderConfig(width=cs.FULL_W, height=cs.FULL_H)
+    view, proj, eye = _pose(cs.FULL_W, cs.FULL_H, 9.0)
+    scene = random_scene(cs.FULL_SPLATS, sh_degree=3, seed=0, extent=4.0,
+                         mean_scale=0.015).pad_to_multiple(1024).to(dev)
+    with torch.no_grad():
+        return binning.bin_splats(project(scene, view, proj, eye, cfg),
+                                  cfg), cfg
+
+
+def garden_passes(dev):
+    """(ops/fused.py's train forward, cfg) of the 5.8M-splat garden scene
+    at its autotuned config (chip_smoke.py phase 8)."""
     from gaussiansplattingviewer_tpu_torch.config import RenderConfig
     from gaussiansplattingviewer_tpu_torch.models import random_scene
     from gaussiansplattingviewer_tpu_torch.ops import binning
     from gaussiansplattingviewer_tpu_torch.ops import fused as fz
     from gaussiansplattingviewer_tpu_torch.ops.autotune import autotune
-    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
-        tile_raster_fwd as b1,
-    )
     from gaussiansplattingviewer_tpu_torch.ops.projection import project
-    from gaussiansplattingviewer_tpu_torch.utils import transforms as tf
-    from gaussiansplattingviewer_tpu_torch.utils.camera import Camera
 
-    def pose(w, h, z):
-        cam = Camera(h=h, w=w)
-        cam.fovy = 1.0
-        eye = np.array([0.0, 0.0, z], np.float32)
-        return tf.look_at(eye, [0, 0, 0], [0, -1, 0]), \
-            cam.get_project_matrix(), eye
-
-    cfg = RenderConfig(width=cs.FULL_W, height=cs.FULL_H)
-    view, proj, eye = pose(cs.FULL_W, cs.FULL_H, 9.0)
-    scene = random_scene(cs.FULL_SPLATS, sh_degree=3, seed=0, extent=4.0,
-                         mean_scale=0.015).pad_to_multiple(1024).to(dev)
-    with torch.no_grad():
-        bs = binning.bin_splats(project(scene, view, proj, eye, cfg), cfg)
-        rgb, trans, ckpt, nproc = b1.tile_raster_fwd_train(
-            bs.table, bs.tile_starts, bs.tile_counts, 0, cfg)
-        shares("1M step", bs.table, bs.tile_starts, nproc, cfg)
-    g_rgb, g_trans = cs.image_cotangents(rgb, trans, cfg)
-    b3_args = (bs.table, bs.tile_starts, bs.tile_counts, nproc, ckpt, 0,
-               g_rgb, g_trans, trans, cfg)
-    del scene
-
-    view, proj, eye = pose(cs.GARDEN_W, cs.GARDEN_H, 11.0)
+    view, proj, eye = _pose(cs.GARDEN_W, cs.GARDEN_H, 11.0)
     scene = random_scene(cs.GARDEN_SPLATS, sh_degree=3, seed=0, extent=6.0,
                          mean_scale=0.012, anisotropy=1.0,
                          opacity_mix=True).pad_to_multiple(1024).to(dev)
@@ -170,9 +181,28 @@ def inputs(dev):
     with torch.no_grad():
         pres = binning.bin_splats_presort(
             project(scene, view, proj, eye, gcfg), gcfg)
-        f = fz._forward(gcfg, gcfg.tiles_y, 1, pres.table_src,
-                        pres.rows_sorted, pres.starts_full, 0, train=True)
-    del scene, pres
+        return fz._forward(gcfg, gcfg.tiles_y, 1, pres.table_src,
+                           pres.rows_sorted, pres.starts_full, 0,
+                           train=True), gcfg
+
+
+def inputs(dev):
+    """B3's arguments at the 1M step and B5's at the garden step's pass 1."""
+    from gaussiansplattingviewer_tpu_torch.ops import fused as fz
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_fwd as b1,
+    )
+
+    bs, cfg = full_table(dev)
+    with torch.no_grad():
+        rgb, trans, ckpt, nproc = b1.tile_raster_fwd_train(
+            bs.table, bs.tile_starts, bs.tile_counts, 0, cfg)
+        shares("1M step", bs.table, bs.tile_starts, nproc, cfg)
+    g_rgb, g_trans = cs.image_cotangents(rgb, trans, cfg)
+    b3_args = (bs.table, bs.tile_starts, bs.tile_counts, nproc, ckpt, 0,
+               g_rgb, g_trans, trans, cfg)
+
+    f, gcfg = garden_passes(dev)
     ntile = gcfg.num_tiles
     gg_rgb, gg_trans = cs.image_cotangents(f["rgb"], f["trans"], gcfg)
     budget = fz._grad_budget(gcfg, f["table1"].shape[1], ntile)

@@ -7,9 +7,9 @@ on one CUDA card.
 Phases, each fatal on failure:
   1. card identity (nvidia-smi name and power limit);
   2. build every CUDA kernel from csrc/ (one nvcc per source, started
-     together), print nvcc's -Xptxas -v report and, per backward kernel
-     (B3, B5) and mode, its registers, spills, shared memory per CTA and
-     CTAs per SM as built;
+     together), print nvcc's -Xptxas -v report and, per kernel (B1, B2,
+     B4 in both variants, B3, B5) and mode, its registers, spills, shared
+     memory per CTA and CTAs per SM as built;
   3. every kernel (B1 inference forward, B2 train forward, B3 blend
      backward, B4 seeded forward in both variants, B5 compact backward)
      against its plain PyTorch version on the 10k-splat golden scene at
@@ -763,10 +763,18 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
     for name in kernels:
         build.load(name)
-    for key, fused in (("B3", False), ("B5", True)):
+    occupancy = {
+        "B1": lambda m: b1.kernel_occupancy(m),
+        "B2": lambda m: b1.kernel_occupancy(m, train=True),
+        "B4": lambda m: b1.kernel_occupancy(m, seeded=True),
+        "B4 train": lambda m: b1.kernel_occupancy(m, train=True,
+                                                  seeded=True),
+        "B3": lambda m: b3.kernel_occupancy(m, False),
+        "B5": lambda m: b3.kernel_occupancy(m, True)}
+    for key, query in occupancy.items():
         for mode in (RenderMode.SH3, RenderMode.BILLBOARD,
                      RenderMode.FLAT_BALL, RenderMode.GAUSSIAN_BALL):
-            occ = b3.kernel_occupancy(mode, fused)
+            occ = query(mode)
             log(f"[build] {key} {mode.name}: {occ['registers']} registers, "
                 f"{occ['local_bytes']} B spilled, {occ['smem_bytes']} B "
                 f"shared per CTA, {occ['ctas_per_sm']} CTAs per SM")

@@ -47,21 +47,65 @@
 // start_B >= end_A.  Two tiles that share a 128-row window share it as
 // the later tile's first block, which nobody writes.
 //
-// What bounds it on an H100: FP32 throughput.  Each (pixel, row) fragment
-// costs ~30 FP32 operations and one expf, while a row's 11 attributes
-// (44 bytes) are shared by the tile's 256 pixels: ~175 operations per byte,
-// far above the card's ~20 FP32 operations per byte of HBM bandwidth.
-// Design: one CTA per tile, one thread per pixel, so every fragment's
-// state (T, rgb) stays in registers; each window's rows are loaded once,
-// coalesced, into shared memory and read by all 256 threads as broadcasts
-// (no bank conflicts).  The TPU kernel's log-domain prefix product on the
-// MXU and its DMA double-buffering are TPU devices and are not carried
-// over: a thread composites its rows sequentially.  B2 adds two coalesced
-// 1 KB checkpoint stores per window and one int per tile.
+// What bounds it on an H100: instruction issue.  Each (pixel, row)
+// fragment needs ~30 FP32 operations and one expf, while a row's 11
+// attributes (44 bytes) are shared by the tile's 256 pixels: ~175
+// operations per byte, far above the card's ~20 FP32 operations per byte
+// of HBM bandwidth.  Built without FMA contraction, every operation is its
+// own instruction.  The first design (one thread per pixel, rows staged as
+// 11 float arrays) issued ~50 instructions per fragment, 11 of them scalar
+// shared-memory loads, and blended every row against every pixel.  This
+// design:
+//
+//   * Rows are staged once per window as 16-byte records (cx cy A B |
+//     C op rx ry | r g b -), so a thread reads a row with three broadcast
+//     128-bit loads: the first two for the fragment math, the colour
+//     record only when compositing (so the colours are not held in
+//     registers across the math).  The global loads stay coalesced (one
+//     table column per thread and attribute).
+//   * Threads own 2 pixels (128-thread CTAs, 4 warps), as in the backward
+//     (tile_raster_bwd.cu): warp w owns the 16x4-pixel band of tile rows
+//     4w .. 4w+3, lane l holds pixels p = 64w + l and p + 32 (tile rows
+//     4w + l/16 and 4w + 2 + l/16), which share the column px.  So dx,
+//     A dx dx, B dx and the |dx| <= rx test are computed once per row for
+//     both (power is -0.5 (A dx dx + C dy dy) - B dx dy, evaluated left to
+//     right, so (A dx) dx and B dx are its own subterms), and one staged
+//     row feeds 2 fragments.  Each pixel's operations and their order are
+//     unchanged, so its bits are.
+//   * Exact warp cull.  When a window is staged, each row's bitmask of the
+//     4 bands its 3-sigma rect reaches is computed once with the kernel's
+//     own test, fabsf(px - cx) <= rx and fabsf(py - cy) <= ry, at every
+//     column centre of the tile and every row centre of the band (a band
+//     is the product of its 16 columns and 4 rows, so the rect reaches a
+//     pixel of it iff it reaches one of its columns and one of its rows).
+//     A warp walks only the rows that reach its band (a ballot per 32
+//     rows, then a warp-uniform loop).  Exact: outside the rect alpha == 0
+//     in every mode (in_rect gates keep, and billboard alpha is in_rect),
+//     so T * (1 - 0) == T bit for bit; the skipped colour adds are
+//     acc + (+0 * T) * c with T in [0, 1] and c finite, i.e. adding +0 or
+//     -0 to an accumulator that starts at +0 and so is never -0 (x + y
+//     rounds an exact zero to +0), which leaves it unchanged.  In
+//     gaussian-ball mode the weight is (0 * T) * gauss with gauss =
+//     exp(power) finite: power is minus half a positive-definite quadratic
+//     form (the conic of a low-pass-filtered covariance), so it is <= 0
+//     up to rounding and exp(power) <= 1 + O(ulp); the product is +0.
+//     ops/kernels/tile_raster_fwd.py warp_cull_plain is the plain mirror,
+//     shared with the backward.
+//   * A thread's two fragments of a row are independent, so their two expf
+//     overlap.  Taking rows two at a time (four fragments in flight)
+//     measured no faster (fwd_ablation.py), so a warp takes one at a time.
+//
+// Resources (sm_90a): 12,544 bytes of static shared memory per CTA (the
+// window as 256 x 48-byte rows, 12 KB, and the 256 cull masks); launch
+// bounds of 8 CTAs per SM (32 warps, at most 64 registers, no spills).
+// gsv_tile_raster_fwd_occupancy reports the registers, spills, shared
+// memory and CTAs per SM as built.  B2 adds two coalesced 128-byte
+// checkpoint stores per warp and window and one int per tile.
 //
 // Built with -fmad=false and without --use_fast_math (see
 // ops/kernels/build.py): the discrete thresholds then see exactly the
-// values the plain PyTorch version computes.
+// values the plain PyTorch version computes, and the backward (B3, B5)
+// recomputes B2's alpha and T bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,10 +113,16 @@
 namespace {
 
 constexpr int kTile = 16;
-constexpr int kPixels = kTile * kTile;  // one thread per pixel
-constexpr int kChunk = 256;             // rows per window
-constexpr int kAlign = 128;             // window alignment
-constexpr int kAttrs = 11;              // table rows 0..10 (cx .. ry)
+constexpr int kPixels = kTile * kTile;
+constexpr int kPix = 2;                   // pixels per thread, one column
+constexpr int kThreads = kPixels / kPix;  // 128
+constexpr int kWarps = kThreads / 32;     // one band of pixel rows each
+constexpr int kBandRows = kTile / kWarps;
+constexpr int kChunk = 256;               // rows per window
+constexpr int kAlign = 128;               // window alignment
+constexpr int kAttrs = 11;                // table rows 0..10 (cx .. ry)
+constexpr int kMinCtas = 32 / kWarps;     // 32 warps per SM
+constexpr unsigned kFull = 0xffffffffu;
 
 // table row indices (ops/binning.py column map)
 constexpr int kCx = 0, kCy = 1, kA = 2, kB = 3, kC = 4;
@@ -80,46 +130,135 @@ constexpr int kR = 5, kG = 6, kBch = 7, kOpacity = 8, kRx = 9, kRy = 10;
 
 enum Mode { kGauss = 0, kBillboard = 1, kFlatBall = 2, kGaussBall = 3 };
 
-// Composite table rows [j0, j1) of the staged window into one pixel.
-template <int MODE>
-__device__ __forceinline__ void blend_rows(
-    const float (*rows)[kChunk], int j0, int j1, float px, float py,
-    float alpha_clamp, float alpha_min, float ball_threshold, float& T,
-    float& acc_r, float& acc_g, float& acc_b) {
-  for (int j = j0; j < j1; ++j) {
-    const float dx = px - rows[kCx][j];
-    const float dy = py - rows[kCy][j];
-    const float power = -0.5f * (rows[kA][j] * dx * dx +
-                                 rows[kC][j] * dy * dy) -
-                        rows[kB][j] * dx * dy;
-    const bool in_rect =
-        fabsf(dx) <= rows[kRx][j] && fabsf(dy) <= rows[kRy][j];
-    float alpha, weight;
-    if (MODE == kBillboard) {
-      alpha = in_rect ? 1.0f : 0.0f;
-      weight = alpha * T;
-    } else {
-      const float gauss = expf(power);
-      alpha = fminf(alpha_clamp, rows[kOpacity][j] * gauss);
-      const bool keep = in_rect && power <= 0.0f && alpha >= alpha_min;
-      alpha = keep ? alpha : 0.0f;
-      if (MODE == kFlatBall || MODE == kGaussBall) {
-        alpha = (keep && alpha > ball_threshold) ? 1.0f : 0.0f;
-      }
-      weight = alpha * T;
-      if (MODE == kGaussBall) weight = weight * gauss;
+struct Smem {
+  float4 rows[kChunk * 3];      // row j: records 3j (shape) .. 3j + 2
+  unsigned char mask[kChunk];   // bands each row's rect reaches
+};
+
+struct Params {
+  float alpha_clamp, alpha_min, ball_threshold;
+};
+
+// A staged row's fragment attributes, read as two 16-byte broadcasts ...
+struct Shape {
+  float cx, cy, a, b, c, op, rx, ry;
+  __device__ __forceinline__ explicit Shape(const float4* s) {
+    const float4 q0 = s[0], q1 = s[1];
+    cx = q0.x; cy = q0.y; a = q0.z; b = q0.w;
+    c = q1.x; op = q1.y; rx = q1.z; ry = q1.w;
+  }
+};
+
+// ... and its colour, one more.
+struct Colour {
+  float r, g, b;
+  __device__ __forceinline__ explicit Colour(const float4* s) {
+    const float4 q = s[2];
+    r = q.x; g = q.y; b = q.z;
+  }
+};
+
+// Pixel i (0 .. 255, row-major in the tile) of the thread (warp, lane):
+// warp w holds the band of tile rows kBandRows w .., lane l column l % 16.
+__device__ __forceinline__ int pixel_of(int warp, int lane, int i) {
+  return warp * 32 * kPix + i * 32 + lane;
+}
+
+// Bands (bit w: the pixels of warp w) that a row's 3-sigma rect reaches,
+// by the kernel's own rect test at the pixel centres.
+__device__ __forceinline__ unsigned band_mask(float cx, float cy, float rx,
+                                              float ry, float tx, float ty) {
+  bool x_hit = false;
+#pragma unroll
+  for (int k = 0; k < kTile; ++k) {
+    const float px = tx * kTile + static_cast<float>(k) + 0.5f;
+    x_hit |= fabsf(px - cx) <= rx;
+  }
+  unsigned m = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    bool y_hit = false;
+#pragma unroll
+    for (int y = 0; y < kBandRows; ++y) {
+      const float py =
+          ty * kTile + static_cast<float>(w * kBandRows + y) + 0.5f;
+      y_hit |= fabsf(py - cy) <= ry;
     }
-    acc_r += weight * rows[kR][j];
-    acc_g += weight * rows[kG][j];
-    acc_b += weight * rows[kBch][j];
-    T = T * (1.0f - alpha);
+    m |= (x_hit && y_hit) ? 1u << w : 0u;
+  }
+  return m;
+}
+
+// Composite one staged row into the thread's pixels (px, py[i]).  Per
+// pixel the expressions and their order are _chunk_blend's; the column's
+// terms are computed once.
+template <int MODE>
+__device__ __forceinline__ void blend_row(const float4* row, float px,
+                                          const float (&py)[kPix],
+                                          const Params& prm, float (&T)[kPix],
+                                          float (&acc)[kPix][3]) {
+  const Shape q(row);
+  const float dx = px - q.cx;
+  const float adxdx = q.a * dx * dx;
+  const float bdx = q.b * dx;
+  const bool x_in = fabsf(dx) <= q.rx;
+  float alpha[kPix], gauss[kPix];
+#pragma unroll
+  for (int i = 0; i < kPix; ++i) {
+    const float dy = py[i] - q.cy;
+    const float power = -0.5f * (adxdx + q.c * dy * dy) - bdx * dy;
+    const bool in_rect = x_in && fabsf(dy) <= q.ry;
+    if (MODE == kBillboard) {
+      alpha[i] = in_rect ? 1.0f : 0.0f;
+      gauss[i] = 1.0f;
+    } else {
+      const float g = expf(power);
+      float a = fminf(prm.alpha_clamp, q.op * g);
+      const bool keep = in_rect && power <= 0.0f && a >= prm.alpha_min;
+      a = keep ? a : 0.0f;
+      if (MODE == kFlatBall || MODE == kGaussBall) {
+        a = (keep && a > prm.ball_threshold) ? 1.0f : 0.0f;
+      }
+      alpha[i] = a;
+      gauss[i] = g;
+    }
+  }
+  const Colour c(row);
+#pragma unroll
+  for (int i = 0; i < kPix; ++i) {
+    float weight = alpha[i] * T[i];
+    if (MODE == kGaussBall) weight = weight * gauss[i];
+    acc[i][0] += weight * c.r;
+    acc[i][1] += weight * c.g;
+    acc[i][2] += weight * c.b;
+    T[i] = T[i] * (1.0f - alpha[i]);
+  }
+}
+
+// Composite the staged rows [j_lo, j_hi) that reach this warp's band, in
+// order (the loop is warp-uniform).
+template <int MODE>
+__device__ __forceinline__ void blend_rows(const Smem& sm, int j_lo,
+                                           int j_hi, int warp, int lane,
+                                           float px, const float (&py)[kPix],
+                                           const Params& prm, float (&T)[kPix],
+                                           float (&acc)[kPix][3]) {
+  for (int s0 = j_lo; s0 < j_hi; s0 += 32) {
+    const int n = min(j_hi - s0, 32);
+    unsigned m = __ballot_sync(
+        kFull, lane < n && ((sm.mask[s0 + lane] >> warp) & 1u));
+    while (m) {
+      const int j = s0 + __ffs(m) - 1;
+      m &= m - 1;
+      blend_row<MODE>(&sm.rows[j * 3], px, py, prm, T, acc);
+    }
   }
 }
 
 // TRAIN = false is kernel B1, TRAIN = true kernel B2 (nproc and ckpt are
 // written only then); SEEDED adds B4's entering transmittance t_init.
 template <int MODE, bool TRAIN, bool SEEDED>
-__global__ void __launch_bounds__(kPixels) tile_raster_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, kMinCtas) tile_raster_fwd_kernel(
     const float* __restrict__ table, int64_t dpad,
     const int* __restrict__ starts, const int* __restrict__ counts,
     int row_offset, int tiles_x, int row_stride, float alpha_clamp,
@@ -127,60 +266,106 @@ __global__ void __launch_bounds__(kPixels) tile_raster_fwd_kernel(
     const float* __restrict__ t_init, float* __restrict__ out_rgb,
     float* __restrict__ out_trans, int* __restrict__ out_nproc,
     float* __restrict__ ckpt) {
-  __shared__ float rows[kAttrs][kChunk];
+  __shared__ Smem sm;
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int start = starts[t];
   const int end = start + counts[t];
   const int base = (start / kAlign) * kAlign;
   const int num_chunks = end > start ? (end - base + kChunk - 1) / kChunk : 0;
+  const Params prm{alpha_clamp, alpha_min, ball_threshold};
 
   const float tx = static_cast<float>(t % tiles_x);
   const float ty = static_cast<float>((t / tiles_x) * row_stride + row_offset);
-  const float px = tx * kTile + static_cast<float>(p % kTile) + 0.5f;
-  const float py = ty * kTile + static_cast<float>(p / kTile) + 0.5f;
-  // this pixel's slot in a checkpoint window: ckpt[p / 128][c + p % 128]
-  const int64_t ck_off = static_cast<int64_t>(p / kAlign) * dpad + p % kAlign;
+  // the thread's pixels share one column
+  const float px =
+      tx * kTile + static_cast<float>(pixel_of(warp, lane, 0) % kTile) + 0.5f;
+  float py[kPix], T[kPix], acc[kPix][3];
+#pragma unroll
+  for (int i = 0; i < kPix; ++i) {
+    const int p = pixel_of(warp, lane, i);
+    py[i] = ty * kTile + static_cast<float>(p / kTile) + 0.5f;
+    T[i] = SEEDED ? t_init[static_cast<int64_t>(t) * kPixels + p] : 1.0f;
+    acc[i][0] = acc[i][1] = acc[i][2] = 0.0f;
+  }
+  // B2: the thread's pixels' T at column c of the checkpoint buffer,
+  // ckpt[p / 128][c + p % 128] (one 128-byte store per warp and pixel)
+  auto put_ckpt = [&](int c) {
+#pragma unroll
+    for (int i = 0; i < kPix; ++i) {
+      const int p = pixel_of(warp, lane, i);
+      ckpt[static_cast<int64_t>(p / kAlign) * dpad + c + p % kAlign] = T[i];
+    }
+  };
 
-  const int64_t o = static_cast<int64_t>(t) * kPixels + p;
-  float T = SEEDED ? t_init[o] : 1.0f;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   int ci = 0;
   for (; ci < num_chunks; ++ci) {
-    // tile-wide stop; also the barrier before rows[] is overwritten
-    if (!__syncthreads_or(T > early_stop)) break;
-    const int w0 = base + ci * kChunk;
-    const int col = w0 + p;
-    if (col >= start && col < end) {
+    bool live = false;
 #pragma unroll
-      for (int a = 0; a < kAttrs; ++a) {
-        rows[a][p] = table[static_cast<int64_t>(a) * dpad + col];
+    for (int i = 0; i < kPix; ++i) live |= T[i] > early_stop;
+    // tile-wide stop; also the barrier before the window is overwritten
+    if (!__syncthreads_or(live)) break;
+    const int w0 = base + ci * kChunk;
+#pragma unroll
+    for (int h = 0; h < kChunk / kThreads; ++h) {
+      const int j = tid + h * kThreads;
+      const int col = w0 + j;
+      unsigned m = 0;
+      if (col >= start && col < end) {
+        float v[kAttrs];
+#pragma unroll
+        for (int a = 0; a < kAttrs; ++a) {
+          v[a] = table[static_cast<int64_t>(a) * dpad + col];
+        }
+        sm.rows[j * 3 + 0] = make_float4(v[kCx], v[kCy], v[kA], v[kB]);
+        sm.rows[j * 3 + 1] = make_float4(v[kC], v[kOpacity], v[kRx], v[kRy]);
+        sm.rows[j * 3 + 2] = make_float4(v[kR], v[kG], v[kBch], 0.0f);
+        m = band_mask(v[kCx], v[kCy], v[kRx], v[kRy], tx, ty);
       }
+      sm.mask[j] = static_cast<unsigned char>(m);
     }
     __syncthreads();
     const int lo = max(start - w0, 0);
     const int hi = min(end - w0, kChunk);
     if (!TRAIN) {
-      blend_rows<MODE>(rows, lo, hi, px, py, alpha_clamp, alpha_min,
-                       ball_threshold, T, acc_r, acc_g, acc_b);
+      blend_rows<MODE>(sm, lo, hi, warp, lane, px, py, prm, T, acc);
     } else {
       // the window's two 128-row blocks; each block's exiting T is the
       // next block's entering checkpoint, written only where that block
       // holds live rows of this tile (see the header on write races)
       const int mid = min(max(lo, kAlign), hi);
-      blend_rows<MODE>(rows, lo, mid, px, py, alpha_clamp, alpha_min,
-                       ball_threshold, T, acc_r, acc_g, acc_b);
-      if (w0 + kAlign < end) ckpt[ck_off + w0 + kAlign] = T;
-      blend_rows<MODE>(rows, mid, hi, px, py, alpha_clamp, alpha_min,
-                       ball_threshold, T, acc_r, acc_g, acc_b);
-      if (w0 + kChunk < end) ckpt[ck_off + w0 + kChunk] = T;
+      blend_rows<MODE>(sm, lo, mid, warp, lane, px, py, prm, T, acc);
+      if (w0 + kAlign < end) put_ckpt(w0 + kAlign);
+      blend_rows<MODE>(sm, mid, hi, warp, lane, px, py, prm, T, acc);
+      if (w0 + kChunk < end) put_ckpt(w0 + kChunk);
     }
   }
-  out_rgb[o * 3 + 0] = acc_r;
-  out_rgb[o * 3 + 1] = acc_g;
-  out_rgb[o * 3 + 2] = acc_b;
-  out_trans[o] = T;
-  if (TRAIN && p == 0) out_nproc[t] = ci;
+#pragma unroll
+  for (int i = 0; i < kPix; ++i) {
+    const int64_t o =
+        static_cast<int64_t>(t) * kPixels + pixel_of(warp, lane, i);
+    out_rgb[o * 3 + 0] = acc[i][0];
+    out_rgb[o * 3 + 1] = acc[i][1];
+    out_rgb[o * 3 + 2] = acc[i][2];
+    out_trans[o] = T[i];
+  }
+  if (TRAIN && tid == 0) out_nproc[t] = ci;
+}
+
+// Call f with the kernel instantiation of this mode.
+template <bool TRAIN, bool SEEDED, typename F>
+int by_mode(int mode, F&& f) {
+  switch (mode) {
+    case kGauss: return f(tile_raster_fwd_kernel<kGauss, TRAIN, SEEDED>);
+    case kBillboard:
+      return f(tile_raster_fwd_kernel<kBillboard, TRAIN, SEEDED>);
+    case kFlatBall: return f(tile_raster_fwd_kernel<kFlatBall, TRAIN, SEEDED>);
+    case kGaussBall:
+      return f(tile_raster_fwd_kernel<kGaussBall, TRAIN, SEEDED>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <bool TRAIN, bool SEEDED>
@@ -192,21 +377,13 @@ int launch(const float* table, long long dpad, const int* starts,
            void* stream) {
   if (num_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(num_tiles), block(kPixels);
-#define GSV_LAUNCH(M)                                                       \
-  tile_raster_fwd_kernel<M, TRAIN, SEEDED><<<grid, block, 0, s>>>(          \
-      table, dpad, starts, counts, row_offset, tiles_x, row_stride,         \
-      alpha_clamp, alpha_min, ball_threshold, early_stop, t_init, out_rgb,  \
-      out_trans, out_nproc, ckpt)
-  switch (mode) {
-    case kGauss: GSV_LAUNCH(kGauss); break;
-    case kBillboard: GSV_LAUNCH(kBillboard); break;
-    case kFlatBall: GSV_LAUNCH(kFlatBall); break;
-    case kGaussBall: GSV_LAUNCH(kGaussBall); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef GSV_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return by_mode<TRAIN, SEEDED>(mode, [&](auto kernel) {
+    kernel<<<num_tiles, kThreads, 0, s>>>(
+        table, dpad, starts, counts, row_offset, tiles_x, row_stride,
+        alpha_clamp, alpha_min, ball_threshold, early_stop, t_init, out_rgb,
+        out_trans, out_nproc, ckpt);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -260,6 +437,34 @@ extern "C" int gsv_tile_raster_fwd_seeded_train(
                             alpha_clamp, alpha_min, ball_threshold,
                             early_stop, t_init, out_rgb, out_trans, out_nproc,
                             ckpt, stream);
+}
+
+// Resources of one instantiation as built: registers per thread, local
+// (spill) bytes per thread, shared memory per CTA, and the CTAs one SM
+// holds at once.
+extern "C" int gsv_tile_raster_fwd_occupancy(int mode, int train, int seeded,
+                                             int* regs, int* local_bytes,
+                                             int* smem_bytes,
+                                             int* ctas_per_sm) {
+  auto query = [&](auto kernel) {
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel,
+                                                        kThreads, 0);
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    *regs = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+    *smem_bytes = static_cast<int>(attr.sharedSizeBytes);
+    return 0;
+  };
+  if (train) {
+    return seeded ? by_mode<true, true>(mode, query)
+                  : by_mode<true, false>(mode, query);
+  }
+  return seeded ? by_mode<false, true>(mode, query)
+                : by_mode<false, false>(mode, query);
 }
 
 extern "C" const char* gsv_cuda_error_string(int code) {

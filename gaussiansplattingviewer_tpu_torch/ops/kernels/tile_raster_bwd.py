@@ -10,8 +10,9 @@ per-tile compact offsets with the splat id beside them).  The CUDA source
 (``csrc/tile_raster_bwd.cu``) gives the gradient math, the traversal (back
 to front from the forward's checkpoints), the fixed-order reduction, the
 exact warp cull, what bounds it on an H100 (FP32 issue) and what its
-design does about that.  ``warp_cull_plain`` is the plain mirror of the
-cull, ``kernel_occupancy`` reports the kernels' resources as built.
+design does about that.  ``warp_cull_plain`` (in ``tile_raster_fwd.py``,
+whose kernels cull the same way) is the plain mirror of the cull,
+``kernel_occupancy`` reports the kernels' resources as built.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``, same signature and semantics) for CPU
@@ -31,6 +32,7 @@ from gaussiansplattingviewer_tpu_torch.config import RenderConfig, RenderMode
 from gaussiansplattingviewer_tpu_torch.ops import binning
 from gaussiansplattingviewer_tpu_torch.ops.kernels import build
 from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
+    BANDS,
     MODE_CODE,
     PLAIN_ELEMS,
     SCAN_BLOCK,
@@ -38,14 +40,12 @@ from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
     fragments,
     stream_of,
     tile_pixel_grid,
+    warp_cull_plain,
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# the kernels' warp footprints: band w is tile rows 4w .. 4w+3, i.e.
-# pixels 64w .. 64w+63
-BANDS = 4
 
 
 def _check_residuals(table, nproc, ckpt, g_rgb, g_trans, out_trans,
@@ -231,27 +231,6 @@ def tile_raster_bwd_fused_plain(table, starts, counts, nproc, goff, ckpt,
         table, starts[:-1], counts, nproc, ckpt, px, py, g_rgb, g_trans,
         out_trans, cfg, suffix_init=suffix_init, t_entry=t_entry, goff=goff,
         grad_rows=grad_rows)
-
-
-def warp_cull_plain(rows, live, px, py):
-    """The (row, band) pairs the kernels keep: (A, R, BANDS) bool for A
-    tiles' rows (11, A, R), live (A, R), and their pixel centres px / py
-    (A, 256).
-
-    The kernels' own rect test, fabsf(px - cx) <= rx and fabsf(py - cy) <=
-    ry, at each of the tile's 16 column centres and each band's 4 row
-    centres: a band is the product of the two, so a row reaches one of its
-    pixels iff it reaches one of its columns and one of its rows.  Outside
-    the kept pairs every fragment has alpha == 0."""
-    b = binning
-    a_n, r_n = live.shape
-    col = lambda c: rows[c][:, :, None]  # noqa: E731  (A, R, 1)
-    xs = px[:, None, :16]                # the tile's column centres
-    ys = py[:, None, ::16]               # its row centres
-    x_hit = (torch.abs(xs - col(b.COL_CX)) <= col(b.COL_RX)).any(dim=2)
-    y_hit = (torch.abs(ys - col(b.COL_CY)) <= col(b.COL_RY)).reshape(
-        a_n, r_n, BANDS, -1).any(dim=3)
-    return x_hit[:, :, None] & y_hit & live[:, :, None]
 
 
 def _block_grads(rows, live, t0, suffix, px, py, g_rgb, gto,

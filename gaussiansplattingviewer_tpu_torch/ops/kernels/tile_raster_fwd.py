@@ -10,10 +10,13 @@ the backward's residuals (``nproc`` and the transmittance checkpoints
 as launched by ``rasterize_binned_pallas_seeded``, the fused path's
 residual pass, whose transmittance starts from pass 1's exit.  All are one
 template in ``csrc/tile_raster_fwd.cu``, whose
-header says what bounds them on an H100 (FP32 throughput: ~175 operations
-per table byte), what the design does about that (one CTA per tile, one
-thread per pixel, rows broadcast from shared memory) and why B2's
-checkpoint writes cannot race.
+header says what bounds them on an H100 (instruction issue: ~175 FP32
+operations per table byte), what the design does about that (one CTA per
+tile, two pixels of one column per thread, rows broadcast from shared
+memory as 16-byte records, an exact per-warp cull) and why B2's checkpoint
+writes cannot race.  ``warp_cull_plain`` is the plain mirror of the cull,
+which the backward kernels (``tile_raster_bwd.py``) share;
+``kernel_occupancy`` reports the kernels' resources as built.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``, same signature and semantics) for CPU
@@ -41,6 +44,9 @@ MODE_CODE = {
 PLAIN_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 26}
 # ckpt rows: pixel p's checkpoint lives in row p // SCAN_BLOCK
 SCAN_BLOCK = binning.SEGMENT_ALIGN
+# the kernels' warp footprints: band w is tile rows 4w .. 4w+3, i.e.
+# pixels 64w .. 64w+63
+BANDS = 4
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -141,6 +147,24 @@ def _fwd_cuda(symbol, table, starts, counts, row_offset, cfg: RenderConfig,
         )
     build.check(lib, rc, f"{symbol} launch")
     return tuple(outs)
+
+
+def kernel_occupancy(mode: RenderMode, train: bool = False,
+                     seeded: bool = False) -> dict:
+    """Resources of the B1 (``train`` False), B2 (``train``) or B4
+    (``seeded``, either variant) instantiation for ``mode`` as built:
+    registers and spilled bytes per thread, shared memory per CTA, and
+    CTAs one SM holds at once.  Needs the card."""
+    lib = build.load("tile_raster_fwd")
+    fn = lib.gsv_tile_raster_fwd_occupancy
+    fn.argtypes = [_I, _I, _I] + [ctypes.POINTER(_I)] * 4
+    fn.restype = _I
+    vals = [_I() for _ in range(4)]
+    rc = fn(MODE_CODE.get(mode, 0), int(train), int(seeded),
+            *(ctypes.byref(v) for v in vals))
+    build.check(lib, rc, "gsv_tile_raster_fwd_occupancy")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "ctas_per_sm"), (v.value for v in vals)))
 
 
 def tile_raster_fwd(table, starts, counts, row_offset, cfg: RenderConfig,
@@ -304,8 +328,29 @@ def fragments(rows, live, px, py, cfg: RenderConfig):
     return dx, dy, gauss, alpha, keep & (raw < cfg.alpha_clamp)
 
 
+def warp_cull_plain(rows, live, px, py):
+    """The (row, band) pairs the kernels keep: (A, R, BANDS) bool for A
+    tiles' rows (11, A, R), live (A, R), and their pixel centres px / py
+    (A, 256).
+
+    The kernels' own rect test, fabsf(px - cx) <= rx and fabsf(py - cy) <=
+    ry, at each of the tile's 16 column centres and each band's 4 row
+    centres: a band is the product of the two, so a row reaches one of its
+    pixels iff it reaches one of its columns and one of its rows.  Outside
+    the kept pairs every fragment has alpha == 0."""
+    b = binning
+    a_n, r_n = live.shape
+    col = lambda c: rows[c][:, :, None]  # noqa: E731  (A, R, 1)
+    xs = px[:, None, :16]                # the tile's column centres
+    ys = py[:, None, ::16]               # its row centres
+    x_hit = (torch.abs(xs - col(b.COL_CX)) <= col(b.COL_RX)).any(dim=2)
+    y_hit = (torch.abs(ys - col(b.COL_CY)) <= col(b.COL_RY)).reshape(
+        a_n, r_n, BANDS, -1).any(dim=3)
+    return x_hit[:, :, None] & y_hit & live[:, :, None]
+
+
 def _blend_window(rows, live, px, py, rgb, trans, cfg: RenderConfig,
-                  n_first=None):
+                  n_first=None, cull=False):
     """Composite one window of rows into A tiles' accumulators.
 
     rows: (11, A, R) attributes, live: (A, R), px/py: (A, P),
@@ -313,16 +358,25 @@ def _blend_window(rows, live, px, py, rgb, trans, cfg: RenderConfig,
     T, T(1-a_0), T(1-a_0)(1-a_1), ... (cumprod along a non-innermost dim is
     a sequential loop on both CPU and CUDA), so T matches the kernel's
     per-thread loop bit for bit; only the rgb sums are taken in another
-    order.  Returns (rgb, exit T, T after the first ``n_first`` (A,) rows
+    order.  With ``cull`` the alpha and weight of every fragment outside
+    the pairs ``warp_cull_plain`` keeps are zeroed, as the kernels skip
+    them.  Returns (rgb, exit T, T after the first ``n_first`` (A,) rows
     or None)."""
     b = binning
     col = lambda c: rows[c][:, :, None]  # noqa: E731  (A, R, 1)
     _, _, gauss, alpha, _ = fragments(rows, live, px, py, cfg)
+    if cull:
+        zero = torch.zeros((), dtype=alpha.dtype, device=alpha.device)
+        kept = warp_cull_plain(rows, live, px, py).repeat_interleave(
+            px.shape[1] // BANDS, dim=2)
+        alpha = torch.where(kept, alpha, zero)
     seq = torch.cumprod(torch.cat([trans[:, None, :], 1.0 - alpha], dim=1),
                         dim=1)
     weight = alpha * seq[:, :-1]
     if cfg.mode == RenderMode.GAUSSIAN_BALL:
         weight = weight * gauss
+    if cull:
+        weight = torch.where(kept, weight, zero)
     rgb = rgb + torch.stack(
         [(weight * col(c)).sum(dim=1) for c in (b.COL_R, b.COL_G, b.COL_BCH)],
         dim=-1,
@@ -343,7 +397,7 @@ def _put_ckpt(ckpt, cols, t_blk):
 
 
 def blend_tiles_plain(table, start, count, px, py, cfg: RenderConfig,
-                      ckpt=None, t_init=None):
+                      ckpt=None, t_init=None, cull=False):
     """Blend any set of tiles: start/count (K,) their table segments,
     px/py (K, P) their pixel centres, t_init (K, P) their entering
     transmittance (None: 1.0).  Returns rgb (K, P, 3), trans (K, P) and
@@ -355,7 +409,9 @@ def blend_tiles_plain(table, start, count, px, py, cfg: RenderConfig,
     rows have alpha 0, which leaves T and rgb exactly unchanged).  With
     ``ckpt`` given, each window also writes the checkpoints kernel B2
     writes: the T leaving each 128-row block at the next block's columns,
-    where that block holds a live row of the tile."""
+    where that block holds a live row of the tile.  ``cull`` skips the
+    fragments the kernels' warp cull skips (``_blend_window``); the result
+    is the same bits."""
     dev = table.device
     K, P = px.shape
     start = start.to(torch.int64)
@@ -393,7 +449,7 @@ def blend_tiles_plain(table, start, count, px, py, cfg: RenderConfig,
                 torch.minimum(e, w0 + SCAN_BLOCK) - lo
             rgb_a, trans_a, t_mid = _blend_window(
                 attrs[:, idx], live, px[act], py[act], rgb[act], trans[act],
-                cfg, n_first)
+                cfg, n_first, cull)
             if ckpt is not None:
                 for c, t_blk in ((w0 + SCAN_BLOCK, t_mid),
                                  (w0 + chunk, trans_a)):

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel (B1-B5) against its plain
-PyTorch version on the same inputs, and render gradients (classic and
-fused) on the card against the same gradients on the CPU.
+PyTorch version on the same inputs, the kernels' resources as built, and
+render gradients (classic and fused) on the card against the same
+gradients on the CPU.
 
 Imports neither JAX nor tests/conftest.py's fixtures, so it also runs where
 JAX is not installed:
@@ -320,9 +321,9 @@ def test_fused_render_gradient_on_card_matches_cpu(prefix):
         assert err <= 1e-4 * scale, name
 
 
-def _scaled_bwd_args(dev, cfg, mean_scale):
-    """B3's inputs on a scene of large (every band live on most rows) or
-    tiny (most (row, band) pairs culled) splats."""
+def _scaled_binned(dev, cfg, mean_scale):
+    """A scene of large (every band live on most rows) or tiny (most
+    (row, band) pairs culled) splats, binned."""
     scene = random_scene(3000, sh_degree=3, seed=12, extent=2.0,
                          mean_scale=mean_scale)
     cam = Camera(h=cfg.height, w=cfg.width)
@@ -330,7 +331,12 @@ def _scaled_bwd_args(dev, cfg, mean_scale):
     eye = np.array([0.2, 0.1, 5.0], np.float32)
     view = tf.look_at(eye, [0, 0, 0], [0, -1, 0])
     splats = project(scene.to(dev), view, cam.get_project_matrix(), eye, cfg)
-    bs = binning.bin_splats(splats, cfg)
+    return binning.bin_splats(splats, cfg)
+
+
+def _scaled_bwd_args(dev, cfg, mean_scale):
+    """B3's inputs on the ``_scaled_binned`` scene."""
+    bs = _scaled_binned(dev, cfg, mean_scale)
     args = (bs.table, bs.tile_starts, bs.tile_counts, 0, cfg)
     _, trans, ckpt, nproc = b1.tile_raster_fwd_train(*args)
     gen = torch.Generator(device="cpu").manual_seed(4)
@@ -404,6 +410,55 @@ def test_tile_raster_bwd_fused_drops_writes_past_budget():
     full = b3.tile_raster_bwd_fused(*args)
     assert torch.equal(g, full[:, :budget])
     assert float(full[:, budget:].abs().max()) > 0  # something was dropped
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mean_scale", [0.3, 0.01], ids=["large", "tiny"])
+def test_tile_raster_fwd_splat_sizes_match_plain(mean_scale):
+    """B1, B2 and B4 (both variants) where the warp cull keeps nearly every
+    (row, band) pair and where it drops most of them: rgb within 1e-5 *
+    max(1, |plain|), T, nproc and ckpt equal."""
+    dev = _card()
+    cfg = RenderConfig(width=320, height=192)
+    bs = _scaled_binned(dev, cfg, mean_scale)
+    args = (bs.table, bs.tile_starts, bs.tile_counts, 0, cfg)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    t_init = 0.2 + 0.8 * torch.rand((cfg.num_tiles, 256), generator=gen)
+    t_init[::5] = 5e-5
+    seeded = (bs.table, bs.tile_starts, bs.tile_counts, t_init.to(dev), 0,
+              cfg)
+    for kernel, plain, a, kw in (
+            (b1.tile_raster_fwd, b1.tile_raster_fwd_plain, args, {}),
+            (b1.tile_raster_fwd_train, b1.tile_raster_fwd_train_plain, args,
+             {}),
+            (b1.tile_raster_fwd_seeded, b1.tile_raster_fwd_seeded_plain,
+             seeded, {"train": False}),
+            (b1.tile_raster_fwd_seeded, b1.tile_raster_fwd_seeded_plain,
+             seeded, {"train": True})):
+        out = kernel(*a, **kw)
+        torch.cuda.synchronize()
+        want = plain(*a, **kw)
+        assert float(want[0].abs().max()) > 0.1
+        assert _close(out[0], want[0]), kernel.__name__
+        for got, ref in zip(out[1:], want[1:]):
+            assert torch.equal(got, ref), kernel.__name__
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("train,seeded", [(False, False), (True, False),
+                                          (False, True), (True, True)],
+                         ids=["B1", "B2", "B4", "B4_train"])
+def test_tile_raster_fwd_resources(train, seeded):
+    """The forward template as built: no spills, the 12,544 bytes of static
+    shared memory of csrc/tile_raster_fwd.cu, and 8 CTAs per SM."""
+    _card()
+    for mode in (RenderMode.SH3, RenderMode.BILLBOARD, RenderMode.FLAT_BALL,
+                 RenderMode.GAUSSIAN_BALL):
+        occ = b1.kernel_occupancy(mode, train, seeded)
+        print(mode, occ)
+        assert occ["local_bytes"] == 0, occ
+        assert occ["smem_bytes"] == 12544, occ
+        assert occ["ctas_per_sm"] == 8, occ
 
 
 @pytest.mark.gpu
