@@ -30,16 +30,28 @@ Phases, each fatal on failure:
   6. the trainer through its CLI (apps.train.main, 3 self-distill steps at
      1920x1080 from the 1M scene written as a PLY);
   7. the serve app on 127.0.0.1 answering /info and three /render requests;
-  8. the garden cell, the JAX bench.py garden workload: 5.8M splats, SH-3,
+  8. the sharded cell (parallel/sharded_render.py) on the 1M scene at
+     1920x1080: the band programs of 4 tile-row shards run by index
+     (contiguous, interleaved, pre-culled bands), each assembled image
+     against render() and B1 launched once per band, each band's kept
+     splats, drops and B1 time beside the unsharded B1 (B1 of band 1 also
+     against its plain version); the gradient of sum(img^2) through the 4
+     contiguous bands (B2 and B3 4 each) against the single render's, f32
+     fold, and the single render's classic gradient twice, bit for bit;
+     3 steps of make_sharded_train_step in a one-rank NCCL group
+     (replicated, then shard_splats with exchange), the loss falling;
+  9. the garden cell, the JAX bench.py garden workload: 5.8M splats, SH-3,
      1920x1080, config from autotune(probe=True, fused=None) (forced fused
      if the tuner declines).  5 fused training steps (sum(img^2), SGD)
      with CUDA-event stage times and launch counts (B2 1, B4 1, B5 2 per
      step), 5 classic steps on the same scene and pose, fused (K = 0 and
-     the tuned K) and classic again against classic gradients with the
-     f32 fold, 3 served frames (B1 1, B4 1 each), and B4/B5 timed alone
-     against their plain versions on a step's own inputs (B5 also against
-     its own second launch, bit for bit);
-  9. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+     the tuned K) against classic gradients with the f32 fold and classic
+     against itself bit for bit, the classic fold (a segment sum per
+     splat) timed against one index_add_ and the fused f64 fold against a
+     sorted variant, 3 served frames (B1 1, B4 1 each), and B4/B5 timed
+     alone against their plain versions on a step's own inputs (B5 also
+     against its own second launch, bit for bit);
+ 10. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
@@ -446,7 +458,7 @@ def grads_of(params):
 
 
 def garden_cell(chk, zero_counts, counts, no_launch):
-    """Phase 8: the JAX bench.py garden workload on the fused path, with
+    """Phase 9: the JAX bench.py garden workload on the fused path, with
     the classic path on the same scene and pose beside it."""
     from gaussiansplattingviewer_tpu_torch.config import RenderConfig
     from gaussiansplattingviewer_tpu_torch.models import (
@@ -548,20 +560,23 @@ def garden_cell(chk, zero_counts, counts, no_launch):
             raise AssertionError(f"garden {name}: rows dropped {diag}")
         out[name] = got
 
-    # fused against classic gradients on the same parameters, f32 fold,
-    # beside classic against itself: the classic fold's f32 atomics add
-    # in another order each run, and on the scale field (sums that cancel)
-    # that noise alone reaches ~1e-4 of max|g|.  With K = 0 the fused pass
-    # blends exactly the classic rows; the tuned K also stops pass 1 at
-    # row K where the classic blend runs on to the end of the window in
-    # which a tile saturates (rows behind T < 1e-4).  Gate: 1e-3.
+    # fused against classic gradients on the same parameters, f32 fold.
+    # The classic fold (binning.fold_table_grad: a row gather in
+    # splat-major order, one segment sum per splat) has no atomics:
+    # classic again must give the same bits.  The fused fold (ops/fold.py,
+    # f64 atomics rounded to f32) is run twice too, and whether it repeats
+    # is printed.  With K = 0 the fused pass blends exactly the
+    # classic rows; the tuned K also stops pass 1 at row K where the
+    # classic blend runs on to the end of the window in which a tile
+    # saturates (rows behind T < 1e-4).  Gate: 1e-3.
     single = cfg.with_(prefix_rows=0, prefix_budget_rows=0,
                        residual_budget_rows=0, grad_budget_rows=0,
                        grad_residual_budget_rows=0)
     grads = {}
+    fused_k = f"fused K={cfg.prefix_rows}"
     for name, c in (("classic", classic), ("classic again", classic),
-                    ("fused K=0", single),
-                    (f"fused K={cfg.prefix_rows}", cfg)):
+                    ("fused K=0", single), (fused_k, cfg),
+                    (fused_k + " again", cfg)):
         for p in params:
             p.grad = None
         img = render_with_aux(sc, view, proj, eye,
@@ -569,18 +584,59 @@ def garden_cell(chk, zero_counts, counts, no_launch):
         (img * img).sum().backward()
         grads[name] = grads_of(params)
     gc_all = grads.pop("classic")
+    g_again = grads.pop(fused_k + " again")
     for name, g_all in grads.items():
         for f, gf, gc in zip(FIELDS, g_all, gc_all):
             scale = float(gc.abs().max())
             err = float((gf - gc).abs().max())
             log(f"[garden] grad {f}: max|{name} - classic| {err:.4g}, "
                 f"max|g| {scale:.4g}, ratio "
-                f"{err / scale if scale else 0.0:.3e} (tol 1e-3)")
+                f"{err / scale if scale else 0.0:.3e} "
+                + ("(must be 0)" if name == "classic again" else
+                   "(tol 1e-3)"))
             if not (scale > 0 and err <= 1e-3 * scale
                     and bool(torch.isfinite(gf).all())):
                 raise AssertionError(f"garden: {name} {f} gradient "
                                      f"disagrees with classic")
-    del grads, gc_all
+            if name == "classic again" and not torch.equal(gf, gc):
+                raise AssertionError(f"garden: the classic {f} gradient "
+                                     f"changed between two backwards")
+    log("[garden] fused (f64 id fold) again bit-equal: " + ", ".join(
+        f"{f} {bool(torch.equal(a, b))}"
+        for f, a, b in zip(FIELDS, g_again, grads[fused_k])))
+    del grads, gc_all, g_again
+
+    # the classic fold alone, on a classic step's own duplicates: the
+    # segment sum against one index_add_ (f32 atomics), bf16 on and off
+    with torch.no_grad():
+        splats = project(sc, view, proj, eye, classic)
+        sid, _, _, pos, offsets = binning._sorted_rows(splats, classic, 0,
+                                                       None, 1)
+        del splats
+    n = len(sc.xyz)
+    cap = min(int(sid.shape[0]), classic.table_budget_rows
+              or classic.table_budget_factor * n)
+    sid = sid[:cap]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g_tab = torch.randn((binning.TABLE_WIDTH, cap + binning.TABLE_PAD),
+                        generator=gen, device=dev)
+    for bf16 in (True, False):
+        def fold():
+            return binning.fold_table_grad(g_tab, pos, offsets, cap, bf16)
+
+        new = fold()
+        old = fold_index_add(g_tab, sid, n, bf16)
+        ms_new, again = cuda_ms(fold, 10)
+        ms_old, _ = cuda_ms(lambda: fold_index_add(g_tab, sid, n, bf16), 10)
+        log(f"[garden] classic fold alone (CUDA events, bf16 {bf16}, "
+            f"{cap} rows onto {n} splats): segment sum {ms_new:.3f} ms, "
+            f"index_add_ {ms_old:.3f} ms; max|segment - index_add_| "
+            f"{float((new - old).abs().max()):.3e} of max "
+            f"{float(old.abs().max()):.3e}; segment sum repeats bit for "
+            f"bit {bool(torch.equal(new, again))}")
+        if not torch.equal(new, again):
+            raise AssertionError("the classic fold changed between runs")
+    del g_tab, sid, pos, offsets, new, old, again
 
     # serving: three frames under the fused config
     zero_counts()
@@ -646,6 +702,16 @@ def garden_cell(chk, zero_counts, counts, no_launch):
                   b3.tile_raster_bwd_fused(*args))
         ms_plain, pg = host_ms(lambda: b3.tile_raster_bwd_fused_plain(*args))
         chk.columns("B5", f"garden step B5 {name}", g, pg)
+        if name == "pass 1":
+            n = len(sc.xyz)
+            ms_f, a = cuda_ms(lambda: fz.fold_rows_by_id(g, n, True), 10)
+            ms_s, b = cuda_ms(lambda: fold_by_id_sorted(g, n, True), 10)
+            log(f"[garden] fused fold alone on pass 1's {g.shape[1]} rows "
+                f"(CUDA events, bf16): f64 index_add_ {ms_f:.3f} ms, "
+                f"sorted f64 segment sum {ms_s:.3f} ms; index_add_ repeats "
+                f"{bool(torch.equal(a, fz.fold_rows_by_id(g, n, True)))}, "
+                f"max|index_add_ - sorted| {float((a - b).abs().max()):.3e}")
+            del a, b
         del g, pg
         ms_b5 += ms / 2
         ms_b5_plain += ms_plain / 2
@@ -675,6 +741,255 @@ def garden_cell(chk, zero_counts, counts, no_launch):
             "ms_b4_plain": ms_b4_plain, "bound_b4": bound_b4,
             "ms_b5": ms_b5, "ms_b5_plain": ms_b5_plain,
             "bound_b5": (b5[0] / 2, b5[1])}
+
+
+def fold_index_add(g, sid, n, fold_bf16):
+    """The classic fold as one f32 ``index_add_`` (CUDA atomics) of the
+    table's columns onto splats ``sid``: the library call the segment sum
+    (binning.fold_table_grad) is timed against."""
+    from gaussiansplattingviewer_tpu_torch.ops import binning
+
+    rows = g[:binning.GRAD_WIDTH, :sid.shape[0]].T
+    if fold_bf16:
+        rows = rows.to(torch.bfloat16).to(torch.float32)
+    out = torch.zeros((n, binning.TABLE_WIDTH), dtype=torch.float32,
+                      device=g.device)
+    out[:, :binning.GRAD_WIDTH].index_add_(0, sid, rows)
+    return out
+
+
+def fold_by_id_sorted(g_soa, n, fold_bf16):
+    """ops/fold.py's f64 id fold with a stable sort by id and one f64
+    segment sum per splat in place of its f64 ``index_add_``."""
+    from gaussiansplattingviewer_tpu_torch.ops import binning
+
+    ids = g_soa[binning.COL_COUNT].to(torch.int32)
+    ids_sorted, perm = torch.sort(ids, stable=True)
+    offsets = torch.searchsorted(
+        ids_sorted, torch.arange(n + 1, dtype=torch.int32,
+                                 device=ids.device))
+    rows = g_soa[:binning.GRAD_WIDTH].index_select(1, perm)
+    if fold_bf16:
+        rows = rows.to(torch.bfloat16)
+    out = torch.zeros((n, binning.TABLE_WIDTH), dtype=torch.float32,
+                      device=g_soa.device)
+    out[:, :binning.GRAD_WIDTH] = torch.segment_reduce(
+        rows.to(torch.float64).T.contiguous(), "sum", offsets=offsets,
+        axis=0, unsafe=True)
+    return out
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+SHARDS = 4
+SHARD_MODES = {"contiguous": {}, "interleaved": dict(row_stride=SHARDS),
+               "precull": dict(precull_budget_factor=2.5)}
+
+
+def sharded_cell(chk, zero_counts, counts, no_launch, scene, view, proj, eye,
+                 cfg):
+    """Phase 8: the tile-row-sharded render and train step
+    (parallel/sharded_render.py) on the 1M scene at full size.  The 4
+    shards' band programs run one after another by index (one card), the
+    distributed step in a one-rank NCCL group."""
+    from gaussiansplattingviewer_tpu_torch import parallel
+    from gaussiansplattingviewer_tpu_torch.models import GaussianData
+    from gaussiansplattingviewer_tpu_torch.ops import binning
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_fwd as b1,
+    )
+    from gaussiansplattingviewer_tpu_torch.ops.projection import project
+    from gaussiansplattingviewer_tpu_torch.ops.render import render
+    from gaussiansplattingviewer_tpu_torch.parallel import sharded_render as sr
+
+    t_phase = time.perf_counter()
+    dev = scene.xyz.device
+    rows = sr._rows_per_shard(cfg, SHARDS)
+    with torch.no_grad():
+        ref = render(scene, view, proj, eye, cfg)
+        # B1 alone on the unsharded frame's table, as on each band's below
+        bs = binning.bin_splats(project(scene, view, proj, eye, cfg), cfg)
+        full_args = (bs.table, bs.tile_starts, bs.tile_counts, 0, cfg)
+        b1.tile_raster_fwd(*full_args)  # warm-up
+        ms_full, _ = cuda_ms(lambda: b1.tile_raster_fwd(*full_args), 10)
+    del bs, full_args
+    log(f"[sharded] {SHARDS} shards of {rows} tile rows each "
+        f"({cfg.tiles_y} rows, {cfg.tiles_x} tiles per row); unsharded B1 "
+        f"{ms_full:.3f} ms (CUDA events)")
+
+    # the bands' tables place each tile's rows at other columns than the
+    # single table does, so the 256-row windows (aligned to 128 table
+    # columns) end at other rows and a tile's early stop (T < 1e-4 after a
+    # window) can blend more or fewer rows behind T < 1e-4: with the early
+    # stop the bands agree with render() to early_stop_transmittance; with
+    # it off both blend every listed row and agree to 1e-5 (bit for bit)
+    exact = cfg.with_(early_stop_transmittance=0.0)
+    with torch.no_grad():
+        ref_exact = render(scene, view, proj, eye, exact)
+    captured = []
+    orig_blend = sr.blend_tiles
+
+    def capture(*a):
+        captured.append(a)
+        return orig_blend(*a)
+
+    def bands(c, kw):
+        """The 4 band programs under config c -> (image, auxes, ms,
+        launches)."""
+        out = torch.zeros((c.height, c.width, 3), device=dev)
+        auxes = []
+        zero_counts()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            for idx in range(SHARDS):
+                band, aux = sr._render_band(scene, view, proj, eye, c, rows,
+                                            idx=idx, return_aux=True, **kw)
+                y = sr.band_pixel_rows(c, SHARDS, idx,
+                                       "row_stride" in kw).to(dev)
+                live = y < c.height
+                out[y[live]] = band[live, :c.width]
+                auxes.append({k: int(v) for k, v in aux.items()})
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        return out, auxes, ms, counts()
+
+    for name, kw in SHARD_MODES.items():
+        captured.clear()
+        sr.blend_tiles = capture
+        try:
+            out, auxes, ms_frame, got = bands(cfg, kw)
+        finally:
+            sr.blend_tiles = orig_blend
+        out_x, auxes_x, _, got_x = bands(exact, kw)
+        for c, img, want, aux_list, launched, tag, t in (
+                (cfg, out, ref, auxes, got, "early stop",
+                 cfg.early_stop_transmittance),
+                (exact, out_x, ref_exact, auxes_x, got_x, "no early stop",
+                 1e-5)):
+            tol_c = t * max(1.0, float(want.abs().max()))
+            err = float((img - want).abs().max())
+            log(f"[sharded] {name}, {tag}: image max|bands - render()| "
+                f"{err:.3e} (tol {tol_c:.1e}), bit-equal "
+                f"{bool(torch.equal(img, want))}, pixels differing "
+                f"{int((img != want).any(dim=-1).sum())}, launches "
+                f"{launched}")
+            if launched != {**no_launch, "B1": SHARDS}:
+                raise AssertionError(f"sharded {name}: launches {launched},"
+                                     f" want B1 {SHARDS}")
+            if not err <= tol_c:
+                raise AssertionError(f"sharded {name} ({tag}): bands "
+                                     f"disagree with render()")
+            for idx, a in enumerate(aux_list):
+                if a["dropped"] or a["truncated"]:
+                    raise AssertionError(f"sharded {name} band {idx}: "
+                                         f"splats dropped {a}")
+        log(f"[sharded] {name}: 4 band programs {ms_frame:.3f} ms (host "
+            f"clock)")
+        band_ms = []
+        for idx, a in enumerate(captured):
+            cfg_b, local_rows, stride, table, starts, cnts, row0 = a
+            args = (table, starts, cnts, row0, cfg_b, local_rows, stride)
+            with torch.no_grad():
+                ms, (rgb, trans) = cuda_ms(lambda: b1.tile_raster_fwd(*args),
+                                           10)
+                if idx == 1:
+                    prgb, ptrans = b1.tile_raster_fwd_plain(*args)
+                    chk.close("B1", f"sharded {name} band 1 B1 rgb", rgb,
+                              prgb)
+                    chk.close("B1", f"sharded {name} band 1 B1 T", trans,
+                              ptrans)
+            band_ms.append(ms)
+        for idx, (a, ms) in enumerate(zip(auxes, band_ms)):
+            log(f"[sharded] {name} band {idx}: kept {a['kept']} splats, "
+                f"dropped {a['dropped']}, num_duplicates "
+                f"{a['num_duplicates']}, truncated {a['truncated']}, "
+                f"overflow {a['overflow']}, B1 {ms:.3f} ms")
+        log(f"[sharded] {name}: B1 per band {[f'{m:.3f}' for m in band_ms]}"
+            f" ms, sum {sum(band_ms):.3f} ms against unsharded "
+            f"{ms_full:.3f} ms")
+    captured.clear()
+
+    # gradients: the full step's loss sum(img^2) through the 4 contiguous
+    # bands (4 backwards accumulating) against the single render, f32 fold
+    cfg32 = cfg.with_(grad_fold_bf16=False)
+
+    def leaves():
+        return GaussianData(*(getattr(scene, f).detach().clone()
+                              .requires_grad_(True) for f in FIELDS))
+
+    sc = leaves()
+    zero_counts()
+    for idx in range(SHARDS):
+        band = sr._render_band(sc, view, proj, eye, cfg32, rows, idx=idx)
+        y = sr.band_pixel_rows(cfg32, SHARDS, idx).to(dev)
+        live = y < cfg.height
+        crop = band[live, :cfg.width]
+        (crop * crop).sum().backward()
+    got = counts()
+    if got != {**no_launch, "B2": SHARDS, "B3": SHARDS}:
+        raise AssertionError(f"sharded gradients: launches {got}")
+    g_bands = grads_of([getattr(sc, f) for f in FIELDS])
+    g_single = []
+    for _ in range(2):
+        sc1 = leaves()
+        img = render(sc1, view, proj, eye, cfg32)
+        (img * img).sum().backward()
+        g_single.append(grads_of([getattr(sc1, f) for f in FIELDS]))
+    for f, gb, g1, g2 in zip(FIELDS, g_bands, *g_single):
+        scale = float(g1.abs().max())
+        err = float((gb - g1).abs().max())
+        same = bool(torch.equal(g1, g2))
+        log(f"[sharded] grad {f}: max|4 bands - single| {err:.4g}, max|g| "
+            f"{scale:.4g}, ratio {err / scale if scale else 0.0:.3e} (tol "
+            f"1e-3); single render again bit-equal {same}")
+        if not (scale > 0 and err <= 1e-3 * scale):
+            raise AssertionError(f"sharded {f} gradient disagrees")
+        if not same:
+            raise AssertionError(f"1M classic {f} gradient changed between "
+                                 f"two backwards")
+    del sc, sc1, g_bands, g_single, img
+
+    # the distributed step in a one-rank NCCL group
+    import torch.distributed as dist
+
+    parallel.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                    device=dev)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        mesh = parallel.make_mesh(1)
+        with torch.no_grad():
+            target = 0.7 * ref
+        for name, kw in (("replicated", {}),
+                         ("shard_splats + exchange",
+                          dict(shard_splats=True, exchange=True))):
+            step = parallel.make_sharded_train_step(mesh, cfg, **kw)
+            sc = leaves()
+            opt, losses, step_ms = None, [], []
+            zero_counts()
+            for _ in range(3):
+                ms, (sc, opt, loss) = host_ms(
+                    lambda: step(sc, opt, view, proj, eye, target))
+                losses.append(float(loss))
+                step_ms.append(ms)
+            got = counts()
+            log(f"[sharded] NCCL world 1, {name}: losses {losses}, steps "
+                f"{[f'{m:.3f}' for m in step_ms]} ms, launches {got}")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"NCCL step {name}: the loss did not "
+                                     f"fall")
+            if got != {**no_launch, "B2": 3, "B3": 3}:
+                raise AssertionError(f"NCCL step {name}: launches {got}")
+            del sc, opt
+    finally:
+        dist.destroy_process_group()
+    log(f"[sharded] phase {time.perf_counter() - t_phase:.2f} s")
 
 
 def bound(name, flops, nbytes):
@@ -1083,13 +1398,17 @@ def main() -> int:
     if app_counts != {**no_launch, "B1": 3}:
         raise AssertionError("serve renders did not go through B1 alone")
 
+    # ---- 8. the sharded cell
+    sharded_cell(chk, zero_counts, counts, no_launch, big, view4, proj4, eye4,
+                 cfg4)
+
     del big, scene_1m
     torch.cuda.empty_cache()
 
-    # ---- 8. the garden cell
+    # ---- 9. the garden cell
     g = garden_cell(chk, zero_counts, counts, no_launch)
 
-    # ---- 9. kernels line, card line, result
+    # ---- 10. kernels line, card line, result
     fwd_src = "gaussiansplattingviewer_tpu_torch/csrc/tile_raster_fwd.cu"
     bwd_src = "gaussiansplattingviewer_tpu_torch/csrc/tile_raster_bwd.cu"
     pallas = "gaussiansplattingviewer_tpu/ops/pallas/"

@@ -21,7 +21,16 @@ overflow or truncation diagnostic fires (--overflow-check-every).  The
 port's binning is exact, so of the tuned fields only table_budget_rows
 changes what it computes.
 
-Not ported yet: the JAX app's --n-devices (mesh sharding).
+--n-devices N (N > 1) shards the image's tile rows over N processes, one
+per device (parallel/): run it under a launcher that starts them,
+
+  torchrun --nproc-per-node N -m gaussiansplattingviewer_tpu_torch.apps.train \
+      --n-devices N --self-distill ...
+
+(``--device cpu`` takes a gloo group on the CPU).  Every rank builds the
+same views and targets; the scene gradient is summed over the ranks before
+each Adam step; rank 0 alone prints and writes files.  As in the JAX app,
+the overflow re-tune is skipped when sharded.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gaussiansplattingviewer_tpu_torch.config import RenderConfig
 from gaussiansplattingviewer_tpu_torch.models import naive_gaussian
@@ -51,6 +61,13 @@ from gaussiansplattingviewer_tpu_torch.ops.autotune import (
     binning_overflow,
 )
 from gaussiansplattingviewer_tpu_torch.ops.render import render, resolve_device
+from gaussiansplattingviewer_tpu_torch.parallel import (
+    all_reduce_grads,
+    initialize_distributed,
+    make_mesh,
+    make_sharded_render_fn,
+    replicate_scene,
+)
 from gaussiansplattingviewer_tpu_torch.utils import colmap
 from gaussiansplattingviewer_tpu_torch.utils import transforms as tf
 from gaussiansplattingviewer_tpu_torch.utils.camera import Camera
@@ -72,6 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--loss", choices=["l2", "l1"], default="l2")
     ap.add_argument("--backend", choices=["kernel", "oracle"],
                     default="kernel")
+    ap.add_argument("--n-devices", type=int, default=0,
+                    help="tile-row shards, one process each, started by a "
+                    "launcher such as torchrun (0 or 1 = single process)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--out", default="trained_scene.npz")
@@ -159,22 +179,51 @@ def _poses_and_targets(args, scene, bbox, center, cfg, render_fn, device):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    dev = resolve_device(args.device)
     backend = args.backend
     cfg = RenderConfig(width=args.width, height=args.height,
                        grad_fold_bf16=(args.grad_fold_bf16 == "on"))
 
     scene, bbox, center = load_scene(args.gs_model)
-    scene = scene.pad_to_multiple(256).to(dev)
+    scene = scene.pad_to_multiple(256)
 
-    def render_fn(sc, view, proj, cam_pos):
-        return render(sc, view, proj, cam_pos, cfg, backend=backend,
-                      device=dev)
+    sharded = bool(args.n_devices and args.n_devices > 1)
+    own_group = sharded and not dist.is_initialized()
+    if sharded:
+        if backend != "kernel":
+            raise SystemExit("--n-devices takes the kernel backend")
+        world = int(os.environ.get("WORLD_SIZE", "1")) \
+            if not dist.is_initialized() else dist.get_world_size()
+        if world != args.n_devices:
+            raise SystemExit(
+                f"--n-devices {args.n_devices} needs {args.n_devices} "
+                f"processes (WORLD_SIZE is {world}): launch with torchrun "
+                f"--nproc-per-node {args.n_devices} -m "
+                f"gaussiansplattingviewer_tpu_torch.apps.train ...")
+        initialize_distributed(device=args.device)
+        mesh = make_mesh(args.n_devices)
+        dev = mesh.device
+        scene = replicate_scene(scene, mesh)
 
+        def make_render(c):
+            return make_sharded_render_fn(mesh, c)
+    else:
+        dev = resolve_device(args.device)
+        scene = scene.to(dev)
+
+        def make_render(c):
+            return lambda sc, view, proj, cam_pos: render(
+                sc, view, proj, cam_pos, c, backend=backend, device=dev)
+    rank0 = not sharded or mesh.rank == 0
+
+    def say(*a):
+        if rank0:
+            print(*a, file=sys.stderr)
+
+    render_fn = make_render(cfg)
     proj, triples = _poses_and_targets(args, scene, bbox, center, cfg,
                                        render_fn, dev)
-    print(f"{len(triples)} training views, backend={backend}, device={dev}",
-          file=sys.stderr)
+    say(f"{len(triples)} training views, backend={backend}, device={dev}"
+        + (f", {args.n_devices} tile-row shards" if sharded else ""))
 
     def tune(c, sc):
         tuned = autotune(
@@ -182,13 +231,14 @@ def main(argv=None) -> int:
             [p for _, p, _ in triples],
             c.with_(pool_ladder=(), pool_huge_entries=0, table_budget_rows=0),
         )
-        print(f"# autotuned: k1={tuned.dense_small_slots} "
-              f"ladder={tuned.pool_ladder} "
-              f"table_rows={tuned.table_budget_rows}", file=sys.stderr)
+        say(f"# autotuned: k1={tuned.dense_small_slots} "
+            f"ladder={tuned.pool_ladder} "
+            f"table_rows={tuned.table_budget_rows}")
         return tuned
 
     if args.autotune:
         cfg = tune(cfg, scene)
+        render_fn = make_render(cfg)
 
     if args.self_distill:
         rng = np.random.default_rng(0)
@@ -209,8 +259,9 @@ def main(argv=None) -> int:
     # the five scene tensors are the optimizer's leaf parameters
     scene = GaussianData(*(getattr(scene, f).detach().clone()
                            .requires_grad_(True) for f in _FIELDS))
-    optimizer = torch.optim.Adam([getattr(scene, f) for f in _FIELDS],
-                                 lr=args.lr, betas=(0.9, 0.999), eps=1e-8)
+    params = [getattr(scene, f) for f in _FIELDS]
+    optimizer = torch.optim.Adam(params, lr=args.lr, betas=(0.9, 0.999),
+                                 eps=1e-8)
     check_every = args.overflow_check_every or args.log_every
     first = mean_loss(scene, triples, proj, render_fn, args.loss)
     t0 = time.time()
@@ -220,35 +271,38 @@ def main(argv=None) -> int:
         loss = image_loss(render_fn(scene, view, proj, cam_pos), target,
                           args.loss)
         loss.backward()
+        if sharded:
+            # each rank holds its band's share of the gradient
+            all_reduce_grads(params, mesh)
         optimizer.step()
         if i % args.log_every == 0:
-            print(f"step {i:5d}  loss {float(loss.detach()):.6f}",
-                  file=sys.stderr)
-        if check_every > 0 and (i + 1) % check_every == 0:
+            say(f"step {i:5d}  loss {float(loss.detach()):.6f}")
+        if check_every > 0 and not sharded and (i + 1) % check_every == 0:
             # the evolving scene can outgrow a tuned config (splats drift
             # or inflate); the diagnostics are the trigger to re-tune
             ovf, trunc = binning_overflow(scene, view, proj, cam_pos, cfg)
             if int(ovf) or int(trunc):
-                print(f"step {i}: binning overflow={int(ovf)} "
-                      f"truncated={int(trunc)} - re-tuning", file=sys.stderr)
+                say(f"step {i}: binning overflow={int(ovf)} "
+                    f"truncated={int(trunc)} - re-tuning")
                 cfg = tune(cfg, scene)
-        if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
+                render_fn = make_render(cfg)
+        if args.ckpt_dir and rank0 and (i + 1) % args.ckpt_every == 0:
             save_train_state(args.ckpt_dir, i + 1, scene, optimizer)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
     last = mean_loss(scene, triples, proj, render_fn, args.loss)
-    print(
-        f"done: mean loss {first:.6f} -> {last:.6f} in {args.steps} steps "
-        f"({dt / max(args.steps, 1) * 1000:.0f} ms/step)",
-        file=sys.stderr,
-    )
-    if args.loss == "l2":
-        # machine-readable quality line for A/B gates (targets are in
-        # [0,1], so mean L2 over views is an MSE and PSNR is meaningful)
-        print(f"final_psnr_db {-10.0 * np.log10(max(last, 1e-12)):.3f}")
-    save_npz(scene, args.out)
-    print(f"saved {args.out}", file=sys.stderr)
+    say(f"done: mean loss {first:.6f} -> {last:.6f} in {args.steps} steps "
+        f"({dt / max(args.steps, 1) * 1000:.0f} ms/step)")
+    if rank0:
+        if args.loss == "l2":
+            # machine-readable quality line for A/B gates (targets are in
+            # [0,1], so mean L2 over views is an MSE and PSNR is meaningful)
+            print(f"final_psnr_db {-10.0 * np.log10(max(last, 1e-12)):.3f}")
+        save_npz(scene, args.out)
+        say(f"saved {args.out}")
+    if own_group:
+        dist.destroy_process_group()
     return 0 if last <= first else 1
 
 

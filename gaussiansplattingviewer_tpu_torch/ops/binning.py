@@ -11,9 +11,11 @@ duplicate count:
      candidate per (splat, bbox tile); tight culling drops the candidates
      whose best pixel alpha is below alpha_min (same formulas as JAX);
   3. ONE ``torch.sort`` over an int64 key (fused 32-bit (tile | depth)
-     key << id_bits) | splat id — the JAX order exactly: tile id high, the
-     top ``depth_bits`` of the positive-f32 depth pattern next, the splat
-     id as the secondary key;
+     key << id_bits) | splat id — the JAX order: tile id high, the top
+     ``depth_bits`` of the positive-f32 depth pattern next, the splat id as
+     the secondary key.  ``depth_bits`` is sized by the whole image's tile
+     count, also for a band of rows (JAX sizes it by the band's), so a
+     band's lists are exactly the image's lists of those rows;
   4. ``searchsorted`` tile starts, the table budget and ``truncated``,
      and one row gather into the (16, cap + TABLE_PAD) table.
 
@@ -23,8 +25,11 @@ path (ops/fused.py) gathers per-tile row prefixes itself.
 Only the gather is differentiable (``_GatherTableRows``, the counterpart of
 the JAX ``_gather_table_rows`` custom_vjp): its backward keeps the first
 GRAD_WIDTH table columns, rounds them to bf16 when ``cfg.grad_fold_bf16``
-(JAX's semantics), and folds rows onto splats with one ``index_add_`` over
-the sorted splat ids.  The JAX pool ladder, payload sort and tier routing
+(JAX's semantics), and folds rows onto splats with one gather of each
+splat's rows (their table columns in splat-major order, known from the
+sort) and one segment sum per splat (``fold_table_grad``), which gives the
+same bits on every run; an ``index_add_`` would add in the order its
+atomics land.  The JAX pool ladder, payload sort and tier routing
 are TPU devices and are not ported.  Steps 1-3 run on detached values.
 """
 
@@ -166,34 +171,53 @@ def pack_table(splats: ProjectedSplats) -> torch.Tensor:
     ], dim=1).to(torch.float32)
 
 
+def fold_table_grad(g: torch.Tensor, pos: torch.Tensor,
+                    offsets: torch.Tensor, cap: int,
+                    fold_bf16: bool) -> torch.Tensor:
+    """The gradient fold: the (n, TABLE_WIDTH) gradient of the packed rows
+    from the table's gradient ``g`` (TABLE_WIDTH, >= cap).
+
+    ``pos`` (M,) is the table column of each duplicate in splat-major
+    order, splat i's duplicates being [offsets[i], offsets[i + 1]); columns
+    at or past ``cap`` were truncated and carry no gradient.  Only columns
+    0..GRAD_WIDTH-1 of the table carry gradient, rounded to bf16 first with
+    ``fold_bf16``.  The columns are turned into (cap, GRAD_WIDTH) rows, one
+    row gather puts each splat's rows together (a duplicate past ``cap``
+    takes an appended zero row) and one segment sum per splat adds them in
+    f32, in the same order on every run: no atomics (the counterpart of
+    the JAX fold's sort by ``perm`` and fixed-shape sums)."""
+    rows = torch.cat([g[:GRAD_WIDTH, :cap].T,
+                      g.new_zeros((1, GRAD_WIDTH))])
+    if fold_bf16:
+        rows = rows.to(torch.bfloat16).to(torch.float32)
+    rows = rows.index_select(0, torch.clamp(pos, max=cap))
+    sums = torch.segment_reduce(rows, "sum", offsets=offsets, axis=0,
+                                unsafe=True)
+    return torch.nn.functional.pad(sums, (0, TABLE_WIDTH - GRAD_WIDTH))
+
+
 class _GatherTableRows(torch.autograd.Function):
     """packed (N, 16) rows -> the (16, cap + TABLE_PAD) table, column j the
-    row sid[j]; the backward is the gradient fold."""
+    row sid[j] (j < cap); the backward is the gradient fold
+    (``fold_table_grad``) over the duplicates' table columns ``pos`` in
+    splat-major order."""
 
     @staticmethod
-    def forward(ctx, packed, sid, width, fold_bf16):
+    def forward(ctx, packed, sid, pos, offsets, width, fold_bf16):
         cap = sid.shape[0]
         table = torch.zeros((TABLE_WIDTH, width), dtype=torch.float32,
                             device=packed.device)
         table[:, :cap] = packed[sid].T
-        ctx.save_for_backward(sid)
-        ctx.n = packed.shape[0]
+        ctx.save_for_backward(pos, offsets)
+        ctx.cap = cap
         ctx.fold_bf16 = fold_bf16
         return table
 
     @staticmethod
     def backward(ctx, g):
-        """The gradient fold: table column j (j < cap) belongs to splat
-        sid[j]; only columns 0..GRAD_WIDTH-1 carry gradient, rounded to
-        bf16 first with ``fold_bf16``, then summed per splat in f32."""
-        (sid,) = ctx.saved_tensors
-        rows = g[:GRAD_WIDTH, : sid.shape[0]].T  # (cap, 9)
-        if ctx.fold_bf16:
-            rows = rows.to(torch.bfloat16).to(torch.float32)
-        g_packed = torch.zeros((ctx.n, TABLE_WIDTH), dtype=torch.float32,
-                               device=g.device)
-        g_packed[:, :GRAD_WIDTH].index_add_(0, sid, rows)
-        return g_packed, None, None, None
+        pos, offsets = ctx.saved_tensors
+        return fold_table_grad(g, pos, offsets, ctx.cap, ctx.fold_bf16), \
+            None, None, None, None, None
 
 
 def _tight_live(splats: ProjectedSplats, cfg: RenderConfig, sid, tx_i, ty_i,
@@ -265,7 +289,10 @@ def _sorted_rows(splats: ProjectedSplats, cfg: RenderConfig, row_offset: int,
                  local_rows: int | None, row_stride: int):
     """Candidates -> tight cull -> (tile | depth | id) sort, on detached
     values.  Returns (sorted splat ids (M,) int64, unclipped tile starts
-    (T + 1,) int64, overflow () i32)."""
+    (T + 1,) int64, overflow () i32, pos, offsets): the candidates are made
+    splat by splat, so ``pos`` (M,) int64, the sorted position of each
+    candidate, lists each splat's table rows together, splat i's at
+    [offsets[i], offsets[i + 1]) (offsets (N + 1,) int64)."""
     if local_rows is None:
         local_rows = cfg.tiles_y
     splats = ProjectedSplats(**{
@@ -295,7 +322,11 @@ def _sorted_rows(splats: ProjectedSplats, cfg: RenderConfig, row_offset: int,
     tiles = ty_i * cfg.tiles_x + tx_i
 
     # ---- fused (tile | depth) key, splat id as the secondary key
-    depth_bits = 32 - int(num_tiles + 1).bit_length()
+    # the depth field's width follows the whole image's tile count, not
+    # the band's: a band's rows then sort exactly as in the single render,
+    # so a sharded render reproduces it bit for bit (the JAX package sizes
+    # it by the band, whose finer depth order can swap near-equal depths)
+    depth_bits = 32 - int(max(num_tiles, cfg.num_tiles) + 1).bit_length()
     id_bits = max(int(n - 1).bit_length(), 1)
     if 32 + id_bits > 63:
         raise ValueError(f"{n} splats do not fit the int64 sort key")
@@ -304,13 +335,16 @@ def _sorted_rows(splats: ProjectedSplats, cfg: RenderConfig, row_offset: int,
     dq = dbits >> (32 - depth_bits)
     fused = (tiles << depth_bits) | dq[sid]
     key = (fused << id_bits) | sid
-    key_sorted, _ = torch.sort(key)
+    key_sorted, order = torch.sort(key)
     sid_sorted = key_sorted & ((1 << id_bits) - 1)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(order.shape[0], device=dev)
+    offsets = torch.searchsorted(sid, torch.arange(n + 1, device=dev))
 
     bounds = (torch.arange(num_tiles + 1, device=dev, dtype=torch.int64)
               << (depth_bits + id_bits))
     starts = torch.searchsorted(key_sorted, bounds)
-    return sid_sorted, starts, overflowed.sum().to(torch.int32)
+    return sid_sorted, starts, overflowed.sum().to(torch.int32), pos, offsets
 
 
 def bin_splats_presort(splats: ProjectedSplats, cfg: RenderConfig,
@@ -318,8 +352,8 @@ def bin_splats_presort(splats: ProjectedSplats, cfg: RenderConfig,
                        row_stride: int = 1) -> PresortedBins:
     """Duplicate expansion and the fused (tile | depth) sort without the
     table gather (the port of the JAX ``bin_splats_presort``)."""
-    sid_sorted, starts, overflow = _sorted_rows(splats, cfg, row_offset,
-                                                local_rows, row_stride)
+    sid_sorted, starts, overflow, _, _ = _sorted_rows(
+        splats, cfg, row_offset, local_rows, row_stride)
     return PresortedBins(
         table_src=pack_table(splats),
         rows_sorted=sid_sorted,
@@ -337,8 +371,8 @@ def bin_splats(splats: ProjectedSplats, cfg: RenderConfig,
     """Depth-ordered per-tile lists over the shard's ``local_rows`` global
     tile rows {row_offset + s * row_stride}; defaults cover the image."""
     packed = pack_table(splats)
-    sid_sorted, starts, overflow = _sorted_rows(splats, cfg, row_offset,
-                                                local_rows, row_stride)
+    sid_sorted, starts, overflow, pos, offsets = _sorted_rows(
+        splats, cfg, row_offset, local_rows, row_stride)
     n = packed.shape[0]
     total = int(sid_sorted.shape[0])
 
@@ -347,8 +381,8 @@ def bin_splats(splats: ProjectedSplats, cfg: RenderConfig,
     cap = min(total, budget)
     starts = torch.clamp(starts, max=cap).to(torch.int32)
     counts = starts[1:] - starts[:-1]
-    table = _GatherTableRows.apply(packed, sid_sorted[:cap], cap + TABLE_PAD,
-                                   bool(cfg.grad_fold_bf16))
+    table = _GatherTableRows.apply(packed, sid_sorted[:cap], pos, offsets,
+                                   cap + TABLE_PAD, bool(cfg.grad_fold_bf16))
     i32 = dict(dtype=torch.int32, device=packed.device)
     return BinnedSplats(
         table=table,

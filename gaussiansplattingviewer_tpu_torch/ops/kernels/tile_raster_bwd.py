@@ -31,15 +31,19 @@ import torch
 from gaussiansplattingviewer_tpu_torch.config import RenderConfig, RenderMode
 from gaussiansplattingviewer_tpu_torch.ops import binning
 from gaussiansplattingviewer_tpu_torch.ops.kernels import build
+# BANDS and warp_cull_plain are re-exported: the backward culls as the
+# forward does
 from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
     BANDS,
     MODE_CODE,
     PLAIN_ELEMS,
     SCAN_BLOCK,
     check_inputs,
+    ckpt_rows,
     fragments,
     stream_of,
     tile_pixel_grid,
+    warp_cull_pixels,
     warp_cull_plain,
 )
 
@@ -49,10 +53,9 @@ _F = ctypes.c_float
 
 
 def _check_residuals(table, nproc, ckpt, g_rgb, g_trans, out_trans,
-                     num_tiles, **fused):
-    p = 256
+                     num_tiles, p, **fused):
     shapes = [(nproc, (num_tiles,), torch.int32),
-              (ckpt, (p // SCAN_BLOCK, table.shape[1]), torch.float32),
+              (ckpt, (ckpt_rows(p), table.shape[1]), torch.float32),
               (g_rgb, (num_tiles, p, 3), torch.float32),
               (g_trans, (num_tiles, p), torch.float32),
               (out_trans, (num_tiles, p), torch.float32)]
@@ -91,7 +94,7 @@ def tile_raster_bwd(table, starts, counts, nproc, ckpt, row_offset, g_rgb,
     num_tiles = local_rows * cfg.tiles_x
     check_inputs(table, starts, counts, cfg, num_tiles)
     _check_residuals(table, nproc, ckpt, g_rgb, g_trans, out_trans,
-                     num_tiles)
+                     num_tiles, cfg.tile_size ** 2)
     if table.device.type == "cpu":
         return tile_raster_bwd_plain(table, starts, counts, nproc, ckpt,
                                      row_offset, g_rgb, g_trans, out_trans,
@@ -181,8 +184,8 @@ def tile_raster_bwd_fused(table, starts, counts, nproc, goff, ckpt,
     num_tiles = local_rows * cfg.tiles_x
     check_inputs(table, starts, counts, cfg, num_tiles)
     _check_residuals(table, nproc, ckpt, g_rgb, g_trans, out_trans,
-                     num_tiles, goff=goff, suffix_init=suffix_init,
-                     t_entry=t_entry)
+                     num_tiles, cfg.tile_size ** 2, goff=goff,
+                     suffix_init=suffix_init, t_entry=t_entry)
     if table.device.type == "cpu":
         return tile_raster_bwd_fused_plain(
             table, starts, counts, nproc, goff, ckpt, row_offset, g_rgb,
@@ -248,8 +251,7 @@ def _block_grads(rows, live, t0, suffix, px, py, g_rgb, gto,
     zero = torch.zeros((), dtype=torch.float32, device=rows.device)
     dx, dy, gauss, alpha, unclamped = fragments(rows, live, px, py, cfg)
     if cull:
-        kept = warp_cull_plain(rows, live, px, py).repeat_interleave(
-            px.shape[1] // BANDS, dim=2)
+        kept = warp_cull_pixels(rows, live, px, py)
         alpha = torch.where(kept, alpha, zero)
         if unclamped is not None:
             unclamped = unclamped & kept
@@ -352,7 +354,7 @@ def blend_tiles_bwd_plain(table, start, count, nproc, ckpt, px, py, g_rgb,
                 first = torch.ones((), device=dev) if t_entry is None \
                     else t_entry[a_ids]
                 t0 = torch.where((c0 == base[a_ids])[:, None], first,
-                                 ck.reshape(len(a_ids), P))
+                                 ck.reshape(len(a_ids), -1)[:, :P])
                 grads, carry = _block_grads(
                     attrs[:, idx], live, t0, suffix[a_ids], px[a_ids],
                     py[a_ids], g_rgb[a_ids], gto[a_ids], cfg, cull)

@@ -21,7 +21,10 @@ which the backward kernels (``tile_raster_bwd.py``) share;
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``, same signature and semantics) for CPU
 tensors.  The plain versions are the CPU executors and the references the
-kernels are held against on the card.
+kernels are held against on the card.  The kernels take 16x16 tiles (the
+256 pixels in the shapes below) and raise for CUDA tensors at another
+``tile_size``; the plain versions take any, with tile_size ** 2 pixels a
+tile.
 """
 
 from __future__ import annotations
@@ -44,9 +47,13 @@ MODE_CODE = {
 PLAIN_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 26}
 # ckpt rows: pixel p's checkpoint lives in row p // SCAN_BLOCK
 SCAN_BLOCK = binning.SEGMENT_ALIGN
-# the kernels' warp footprints: band w is tile rows 4w .. 4w+3, i.e.
-# pixels 64w .. 64w+63
-BANDS = 4
+# the kernels take 16x16 tiles (256 pixels, one pixel column pair per
+# thread); the plain versions take any tile_size
+KERNEL_TILE = 16
+# a warp's footprint: 32 lanes x 2 pixels; in a 16x16 tile, band w is tile
+# rows 4w .. 4w+3, i.e. pixels 64w .. 64w+63
+BAND_PIXELS = 64
+BANDS = KERNEL_TILE * KERNEL_TILE // BAND_PIXELS
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -72,10 +79,17 @@ def tile_pixel_grid(cfg: RenderConfig, local_rows: int, row_offset: int = 0,
     return px, py
 
 
+def ckpt_rows(pixels: int) -> int:
+    """Rows of the checkpoint buffer for tiles of ``pixels`` pixels."""
+    return -(-pixels // SCAN_BLOCK)
+
+
 def check_inputs(table, starts, counts, cfg, num_tiles):
-    if cfg.tile_size != 16:
+    if table.device.type == "cuda" and cfg.tile_size != KERNEL_TILE:
         raise ValueError(
-            f"the blend kernel takes tile_size 16, got {cfg.tile_size}")
+            f"the CUDA blend kernels take tile_size {KERNEL_TILE}, got "
+            f"{cfg.tile_size} (the plain versions, for CPU tensors, take "
+            f"any tile size)")
     if table.dtype != torch.float32 or table.dim() != 2 \
             or table.shape[0] != binning.TABLE_WIDTH:
         raise ValueError(
@@ -102,10 +116,10 @@ def stream_of(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _check_t_init(t_init, table, num_tiles):
+def _check_t_init(t_init, table, num_tiles, pixels):
     if t_init.dtype != torch.float32 or tuple(t_init.shape) != (num_tiles,
-                                                                 256):
-        raise ValueError(f"t_init must be f32 ({num_tiles}, 256), got "
+                                                                 pixels):
+        raise ValueError(f"t_init must be f32 ({num_tiles}, {pixels}), got "
                          f"{t_init.dtype} {tuple(t_init.shape)}")
     if t_init.device != table.device:
         raise ValueError("t_init must share the table's device")
@@ -240,7 +254,7 @@ def tile_raster_fwd_seeded(table, starts, counts, t_init, row_offset,
         local_rows = cfg.tiles_y
     num_tiles = local_rows * cfg.tiles_x
     check_inputs(table, starts, counts, cfg, num_tiles)
-    _check_t_init(t_init, table, num_tiles)
+    _check_t_init(t_init, table, num_tiles, cfg.tile_size ** 2)
     if table.device.type == "cpu":
         return tile_raster_fwd_seeded_plain(table, starts, counts, t_init,
                                             row_offset, cfg, local_rows,
@@ -288,7 +302,7 @@ def tile_raster_fwd_seeded_plain(table, starts, counts, t_init, row_offset,
         local_rows = cfg.tiles_y
     px, py = tile_pixel_grid(cfg, local_rows, int(row_offset), row_stride,
                              device=table.device)
-    ckpt = torch.zeros((256 // SCAN_BLOCK, table.shape[1]),
+    ckpt = torch.zeros((ckpt_rows(px.shape[1]), table.shape[1]),
                        dtype=torch.float32, device=table.device) \
         if train else None
     rgb, trans, nproc = blend_tiles_plain(table, starts[:-1], counts, px, py,
@@ -328,25 +342,41 @@ def fragments(rows, live, px, py, cfg: RenderConfig):
     return dx, dy, gauss, alpha, keep & (raw < cfg.alpha_clamp)
 
 
+def band_rows(ts: int) -> int:
+    """Tile rows of one warp band: BAND_PIXELS // ts rows (4 of a 16x16
+    tile), or the whole tile where that does not divide it evenly."""
+    rows = max(1, BAND_PIXELS // ts)
+    return rows if ts % rows == 0 else ts
+
+
 def warp_cull_plain(rows, live, px, py):
-    """The (row, band) pairs the kernels keep: (A, R, BANDS) bool for A
+    """The (row, band) pairs the kernels keep: (A, R, bands) bool for A
     tiles' rows (11, A, R), live (A, R), and their pixel centres px / py
-    (A, 256).
+    (A, P), P = ts * ts; a band is ``band_rows(ts)`` tile rows (4 bands of
+    4 rows in the kernels' 16x16 tile).
 
     The kernels' own rect test, fabsf(px - cx) <= rx and fabsf(py - cy) <=
-    ry, at each of the tile's 16 column centres and each band's 4 row
+    ry, at each of the tile's ts column centres and each band's row
     centres: a band is the product of the two, so a row reaches one of its
     pixels iff it reaches one of its columns and one of its rows.  Outside
     the kept pairs every fragment has alpha == 0."""
     b = binning
     a_n, r_n = live.shape
+    ts = int(round(px.shape[1] ** 0.5))
     col = lambda c: rows[c][:, :, None]  # noqa: E731  (A, R, 1)
-    xs = px[:, None, :16]                # the tile's column centres
-    ys = py[:, None, ::16]               # its row centres
+    xs = px[:, None, :ts]                # the tile's column centres
+    ys = py[:, None, ::ts]               # its row centres
     x_hit = (torch.abs(xs - col(b.COL_CX)) <= col(b.COL_RX)).any(dim=2)
     y_hit = (torch.abs(ys - col(b.COL_CY)) <= col(b.COL_RY)).reshape(
-        a_n, r_n, BANDS, -1).any(dim=3)
+        a_n, r_n, -1, band_rows(ts)).any(dim=3)
     return x_hit[:, :, None] & y_hit & live[:, :, None]
+
+
+def warp_cull_pixels(rows, live, px, py):
+    """``warp_cull_plain`` spread over the pixels: (A, R, P) bool."""
+    ts = int(round(px.shape[1] ** 0.5))
+    return warp_cull_plain(rows, live, px, py).repeat_interleave(
+        band_rows(ts) * ts, dim=2)
 
 
 def _blend_window(rows, live, px, py, rgb, trans, cfg: RenderConfig,
@@ -367,8 +397,7 @@ def _blend_window(rows, live, px, py, rgb, trans, cfg: RenderConfig,
     _, _, gauss, alpha, _ = fragments(rows, live, px, py, cfg)
     if cull:
         zero = torch.zeros((), dtype=alpha.dtype, device=alpha.device)
-        kept = warp_cull_plain(rows, live, px, py).repeat_interleave(
-            px.shape[1] // BANDS, dim=2)
+        kept = warp_cull_pixels(rows, live, px, py)
         alpha = torch.where(kept, alpha, zero)
     seq = torch.cumprod(torch.cat([trans[:, None, :], 1.0 - alpha], dim=1),
                         dim=1)
@@ -388,11 +417,14 @@ def _blend_window(rows, live, px, py, rgb, trans, cfg: RenderConfig,
 
 
 def _put_ckpt(ckpt, cols, t_blk):
-    """ckpt[p // 128, c + p % 128] = t_blk[:, p] for each column c."""
+    """ckpt[p // 128, c + p % 128] = t_blk[:, p] for each column c (a tile
+    of under 128 pixels fills the rest of its row with zeros)."""
     a = cols.shape[0]
     if a == 0:
         return
     idx = cols[:, None] + torch.arange(SCAN_BLOCK, device=cols.device)
+    t_blk = torch.nn.functional.pad(
+        t_blk, (0, ckpt.shape[0] * SCAN_BLOCK - t_blk.shape[1]))
     ckpt[:, idx] = t_blk.reshape(a, -1, SCAN_BLOCK).permute(1, 0, 2)
 
 

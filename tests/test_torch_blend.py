@@ -133,8 +133,16 @@ def test_kernel_wrapper_checks_inputs():
     table = torch.zeros((16, 600))
     starts = torch.zeros(cfg.num_tiles + 1, dtype=torch.int32)
     counts = torch.zeros(cfg.num_tiles, dtype=torch.int32)
-    with pytest.raises(ValueError, match="tile_size 16"):
-        k.tile_raster_fwd(table, starts, counts, 0, cfg.with_(tile_size=8))
+    # CPU tensors take any tile size (the plain version); only the CUDA
+    # kernels are built for 16 (tests/test_torch_kernels_gpu.py)
+    cfg8 = cfg.with_(tile_size=8)
+    rgb8, trans8 = k.tile_raster_fwd(
+        table, torch.zeros(cfg8.num_tiles + 1, dtype=torch.int32),
+        torch.zeros(cfg8.num_tiles, dtype=torch.int32), 0, cfg8)
+    assert rgb8.shape == (cfg8.num_tiles, 64, 3)
+    np.testing.assert_array_equal(trans8.numpy(), 1.0)
+    with pytest.raises(ValueError, match="tiles"):
+        k.tile_raster_fwd(table, starts, counts, 0, cfg8)
     with pytest.raises(ValueError, match="int32"):
         k.tile_raster_fwd(table, starts.long(), counts, 0, cfg)
     with pytest.raises(ValueError, match="tiles"):

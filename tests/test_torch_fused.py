@@ -237,16 +237,29 @@ def test_fold_rows_by_id_matches_jax():
 @pytest.mark.parametrize("band", [{}, dict(row_offset=1, local_rows=2,
                                            row_stride=2)])
 def test_presort_matches_jax(band):
+    """The port's lists of a row set are the whole image's lists of those
+    rows, bit for bit: its depth key is sized by the image's tile count
+    (JAX sizes a band's by the band's, which can reorder near-equal
+    depths), so a band is held to JAX's whole-image presort on its tiles."""
     cfg = JaxConfig(width=W, height=H)
     jax_s, port_s = both_splats(_scene("multi_window"))
     want = jbin.bin_splats_presort(jax_s, cfg, **band)
     got = binning.bin_splats_presort(port_s, port_cfg(cfg), **band)
-    np.testing.assert_array_equal(got.starts_full.numpy(),
-                                  np.asarray(want.starts_full))
+    full = jbin.bin_splats_presort(jax_s, cfg)
+    starts = np.asarray(full.starts_full)
+    rows = np.asarray(full.rows_sorted)
+    local = band.get("local_rows", cfg.tiles_y)
+    tiles = [(band.get("row_offset", 0) + s * band.get("row_stride", 1))
+             * cfg.tiles_x + x for s in range(local)
+             for x in range(cfg.tiles_x)]
+    lists = [rows[starts[t]:starts[t + 1]] for t in tiles]
+    np.testing.assert_array_equal(
+        got.starts_full.numpy(),
+        np.concatenate([[0], np.cumsum([len(r) for r in lists])]))
     live = int(want.num_duplicates)
     assert int(got.num_duplicates) == live == got.rows_sorted.shape[0]
     np.testing.assert_array_equal(got.rows_sorted.numpy(),
-                                  np.asarray(want.rows_sorted)[:live])
+                                  np.concatenate(lists))
     assert int(got.overflow) == int(want.overflow)
 
 

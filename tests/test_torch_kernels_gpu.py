@@ -473,3 +473,93 @@ def test_tile_raster_bwd_resources(fused):
         assert occ["local_bytes"] == 0, occ
         assert occ["smem_bytes"] == 55824, occ
         assert occ["ctas_per_sm"] == 4, occ
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_refuse_other_tile_sizes():
+    """The kernels are built for 16x16 tiles: CUDA tensors at tile_size 8
+    raise, and nothing runs (no plain fallback, no launch)."""
+    dev = _card()
+    cfg = RenderConfig(width=64, height=48, tile_size=8)
+    table = torch.zeros((16, 600), device=dev)
+    starts = torch.zeros(cfg.num_tiles + 1, dtype=torch.int32, device=dev)
+    counts = torch.zeros(cfg.num_tiles, dtype=torch.int32, device=dev)
+    before = (b1.tile_raster_fwd.launches, b1.tile_raster_fwd_train.launches)
+    for kernel in (b1.tile_raster_fwd, b1.tile_raster_fwd_train):
+        with pytest.raises(ValueError, match="tile_size 16"):
+            kernel(table, starts, counts, 0, cfg)
+    assert before == (b1.tile_raster_fwd.launches,
+                      b1.tile_raster_fwd_train.launches)
+    scene = random_scene(500, sh_degree=0, seed=3, extent=2.0,
+                         mean_scale=0.05)
+    view = tf.look_at([0, 0, 5.0], [0, 0, 0], [0, -1, 0])
+    cam = Camera(h=cfg.height, w=cfg.width)
+    with pytest.raises(ValueError, match="tile_size 16"):
+        render(scene, view, cam.get_project_matrix(),
+               np.array([0, 0, 5.0], np.float32), cfg, device=dev)
+
+
+def _classic_grads(dev, cfg, scene, view, proj, eye):
+    sc = scene.to(dev)
+    leaves = [getattr(sc, f).detach().clone().requires_grad_(True)
+              for f in ("xyz", "rot", "scale", "opacity", "sh")]
+    from gaussiansplattingviewer_tpu_torch.models import GaussianData
+
+    img = render(GaussianData(*leaves), view, proj, eye, cfg, device=dev)
+    (img * img).sum().backward()
+    return [p.grad for p in leaves]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fold_bf16", [False, True])
+def test_classic_backward_repeats_bit_for_bit(fold_bf16):
+    """The classic fold (a stable sort by splat id and one segment sum per
+    splat) has no atomics: two backwards give the same bits."""
+    dev = _card()
+    cfg = RenderConfig(width=320, height=192, grad_fold_bf16=fold_bf16)
+    scene = random_scene(20000, sh_degree=3, seed=11, extent=2.0,
+                         mean_scale=0.03)
+    cam = Camera(h=cfg.height, w=cfg.width)
+    cam.fovy = 1.0
+    eye = np.array([0.0, 0.0, 5.0], np.float32)
+    view = tf.look_at(eye, [0, 0, 0], [0, -1, 0])
+    args = (dev, cfg, scene, view, cam.get_project_matrix(), eye)
+    first = _classic_grads(*args)
+    for a, b in zip(first, _classic_grads(*args)):
+        assert float(a.abs().max()) > 0
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interleaved", [False, True])
+def test_band_programs_on_card_match_render(interleaved):
+    """Each of 4 shards' band programs (parallel/sharded_render.py), run by
+    index in one process on the card: the bands reassemble render()'s
+    image at 1e-5 * max(1, |ref|), one B1 launch each."""
+    from gaussiansplattingviewer_tpu_torch.parallel import sharded_render
+
+    dev = _card()
+    cfg = RenderConfig(width=320, height=200)
+    scene = random_scene(20000, sh_degree=3, seed=12, extent=2.0,
+                         mean_scale=0.03).to(dev)
+    cam = Camera(h=cfg.height, w=cfg.width)
+    cam.fovy = 1.0
+    eye = np.array([0.0, 0.0, 5.0], np.float32)
+    view = tf.look_at(eye, [0, 0, 0], [0, -1, 0])
+    proj = cam.get_project_matrix()
+    with torch.no_grad():
+        ref = render(scene, view, proj, eye, cfg, device=dev)
+        out = torch.zeros_like(ref)
+        n = 4
+        rows = sharded_render._rows_per_shard(cfg, n)
+        before = b1.tile_raster_fwd.launches
+        for idx in range(n):
+            band = sharded_render._render_band(
+                scene, view, proj, eye, cfg, rows,
+                row_stride=n if interleaved else 1, idx=idx)
+            y = sharded_render.band_pixel_rows(cfg, n, idx, interleaved)
+            live = y < cfg.height
+            out[y[live].to(dev)] = band[live.to(dev), : cfg.width]
+        assert b1.tile_raster_fwd.launches == before + n
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    assert float((out - ref).abs().max()) <= tol
