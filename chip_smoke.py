@@ -17,9 +17,18 @@ Phases, each fatal on failure:
      shard (B4/B5 on the fused path's own pass-1 and pass-2 inputs,
      prefix_rows 32); the rendered images against the stored goldens
      (tests/goldens);
+ 3b. tile sizes 8 and 32, which the inference forward also takes: B1 and
+     B4 (train=False, on the fused serving path's pass-2 inputs) against
+     their plain versions on the golden scene in all 7 modes, the opaque
+     copy and the shard; CUDA tensors at tile 8 through B2, B4 train, B3
+     and B5 raise and launch nothing;
   4. the serving path at full size: the 1M-splat SH-3 bench scene at
      1920x1080 through render() under no_grad, with CUDA-event stage times
      and B1 held against its plain version on the same table;
+ 4b. the same frame at tile sizes 8 and 32: 3 frames each (B1 once per
+     frame) and B1 alone against its plain version with its bound; at 8,
+     16 and 32, 2 frames on the fused serving path (B1 and B4 once each)
+     and B4 alone;
   5. the training step at full size (the JAX bench.py default step: loss
      sum(img^2), SGD at lr 1e-12): CUDA-event stage times inside real
      steps, B2 and B3 timed alone and held against their plain versions on
@@ -28,7 +37,7 @@ Phases, each fatal on failure:
      steps through render() + backward(), their launch counts and
      gradients;
   6. the trainer through its CLI (apps.train.main, 3 self-distill steps at
-     1920x1080 from the 1M scene written as a PLY);
+     1920x1080 from the 1M scene written as a PLY scene dir);
   7. the serve app on 127.0.0.1 answering /info and three /render requests;
   8. the sharded cell (parallel/sharded_render.py) on the 1M scene at
      1920x1080: the band programs of 4 tile-row shards run by index
@@ -40,6 +49,17 @@ Phases, each fatal on failure:
      fold, and the single render's classic gradient twice, bit for bit;
      3 steps of make_sharded_train_step in a one-rank NCCL group
      (replicated, then shard_splats with exchange), the loss falling;
+ 8b. the apps on phase 6's PLY at 1920x1080, B1 once per frame: the
+     native PLY load bit-equal to numpy's (or which fallback ran), the
+     native PNG encoders timed against PIL's, the viewer (an 8-frame
+     orbit, a DEPTH frame, its frame in
+     utils.profiling.FrameTimer and a 3-frame torch.profiler trace written
+     to chiprun_out/), dataset_gen over 4 COLMAP poses (3 frames each; a
+     second run renders none; the disparity PNG equal to a direct DEPTH
+     render x 65535 to 1 LSB), PSNR / SSIM and the point cloud of its
+     triplets, render_all over two scene dirs (1M and golden, 2 poses
+     each), serve --gs-model answering one /render, and
+     eval.compare_backends kernel against oracle on the golden scene;
   9. the garden cell, the JAX bench.py garden workload: 5.8M splats, SH-3,
      1920x1080, config from autotune(probe=True, fused=None) (forced fused
      if the tuner declines).  5 fused training steps (sum(img^2), SGD)
@@ -52,6 +72,9 @@ Phases, each fatal on failure:
      alone against their plain versions on a step's own inputs (B5 also
      against its own second launch, bit for bit);
  10. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+
+Each kernel's bound_ms counts the fragments this run's data needs: the
+pixels inside each blended row's rect (fragments_needed).
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
@@ -105,6 +128,22 @@ GARDEN_SPLATS, GARDEN_W, GARDEN_H = 5_800_000, 1920, 1080
 GOLDEN_FUSED = dict(fused_grad=True, prefix_rows=32,
                     residual_budget_rows=1 << 20)
 SERVE_W, SERVE_H = 960, 540
+# the inference forward (B1, B4 train=False) also takes these tile sizes
+TILE_SIZES = (8, 32)
+# fused serving prefixes: the golden checks' 32 rows at tile 16 and the
+# 1M frame's 256, scaled by the tile's pixels
+GOLDEN_PREFIX = {8: 8, 16: 32, 32: 128}
+FULL_PREFIX = {8: 64, 16: 256, 32: 1024}
+FUSED_RESIDUAL_ROWS = 1 << 23
+# compare_backends, kernel against oracle: max_abs within 1e-4 on the JAX
+# flip harness's scene (tests/test_golden.py: the kernel stops a tile at
+# T < 1e-4 where the oracle blends every splat).  On the golden scene the
+# tile path orders splats by the top 20 bits of their depth (binning's
+# key at 2,409 tiles), the oracle by exact depth, so near-equal depths of
+# overlapping splats blend in another order in a few pixels, as in the JAX
+# package: gated on the mean and the PSNR there
+COMPARE_TOL = 1e-4
+GOLDEN_COMPARE = {"mean_abs": 1e-4, "psnr": 50.0}
 SGD_LR = 1e-12  # bench.py's: keeps the scene statistically unchanged
 TRAIN_STEPS = 5
 
@@ -142,7 +181,7 @@ class Checks:
         self.err = {k: 0.0 for k in ("B1", "B2", "B3", "B4", "B5")}
 
     def _record(self, kernel, tag, err, tol):
-        self.err[kernel] = max(self.err[kernel], err)
+        self.err[kernel] = max(self.err.get(kernel, 0.0), err)
         log(f"[check] {tag}: max|diff| {err:.3e} (tol {tol:.1e})")
         if not err <= tol:
             raise AssertionError(f"{tag}: kernel disagrees with plain")
@@ -298,6 +337,62 @@ def rows_blended(tile_starts, nproc):
     base = s[:-1] // SEGMENT_ALIGN * SEGMENT_ALIGN
     return (torch.minimum(s[1:], base + nproc.to(torch.int64) * KERNEL_CHUNK)
             - s[:-1]).clamp(min=0)
+
+
+def fragments_needed(table, tile_starts, tile_counts, nproc, cfg,
+                     row_offset=0, local_rows=None, row_stride=1):
+    """The (pixel, row) fragments a blend needs on this data, for bound_ms:
+    for every row a tile blended before its early stop, the tile's pixels
+    inside the row's rect, |px - cx| <= rx and |py - cy| <= ry (the
+    kernels' own test: every other fragment has alpha 0 and no gradient).
+    Returns (rows, fragments in the rects, fragments of the 64-pixel warp
+    bands the kernels' cull keeps), the last for the log only."""
+    from gaussiansplattingviewer_tpu_torch.ops import binning as b
+    from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
+        band_rows,
+        tile_pixel_grid,
+    )
+
+    ts, dev = cfg.tile_size, table.device
+    if local_rows is None:
+        local_rows = cfg.tiles_y
+    px, py = tile_pixel_grid(cfg, local_rows, row_offset, row_stride,
+                             device=dev)
+    xs, ys = px[:, :ts], py[:, ::ts]  # each tile's column / row centres
+    s = tile_starts[:-1].to(torch.int64)
+    base = s // b.SEGMENT_ALIGN * b.SEGMENT_ALIGN
+    n = torch.minimum(tile_counts.to(torch.int64),
+                      base + nproc.to(torch.int64) * b.KERNEL_CHUNK - s
+                      ).clamp(min=0)
+    total = int(n.sum())
+    tile = torch.repeat_interleave(torch.arange(len(n), device=dev), n)
+    first = torch.repeat_interleave(s - (torch.cumsum(n, 0) - n), n)
+    rect = band = 0
+    br = band_rows(ts)
+    for i in range(0, total, 1 << 22):
+        t = tile[i:i + (1 << 22)]
+        c = first[i:i + (1 << 22)] + torch.arange(i, i + len(t), device=dev)
+        hx = (xs[t] - table[b.COL_CX, c][:, None]).abs() \
+            <= table[b.COL_RX, c][:, None]
+        hy = (ys[t] - table[b.COL_CY, c][:, None]).abs() \
+            <= table[b.COL_RY, c][:, None]
+        nx = hx.sum(1)
+        rect += int((nx * hy.sum(1)).sum())
+        band += int((hy.reshape(len(t), -1, br).any(2).sum(1)
+                     * (nx > 0)).sum()) * br * ts
+    return total, rect, band
+
+
+def needed(tag, table, tile_starts, tile_counts, nproc, cfg, **band):
+    """fragments_needed, logged beside the whole-tile count; returns
+    (rows blended, fragments in their rects)."""
+    rows, rect, kept = fragments_needed(table, tile_starts, tile_counts,
+                                        nproc, cfg, **band)
+    whole = rows * cfg.tile_size ** 2
+    log(f"[bound] {tag}: {rows} rows blended; fragments in their rects "
+        f"{rect} ({rect / max(whole, 1):.4f} of their tiles' {whole}), in "
+        f"the warp bands the cull keeps {kept} ({kept / max(whole, 1):.4f})")
+    return rows, rect
 
 
 def sgd_step(sc, params, view, proj, eye, cfg, lr=SGD_LR):
@@ -692,7 +787,7 @@ def garden_cell(chk, zero_counts, counts, no_launch):
                    (g_rgb * rgb2).sum(dim=-1), torch.ones_like(f["trans"]),
                    fz._grad_budget(cfg, f["table1"].shape[1], ntile), cfg)}
     ms_b5 = ms_b5_plain = 0.0
-    rows = {}
+    rows, frags = {}, {}
     b5_bytes = 0
     seg_bytes = (2 * ntile + 1) * 4
     for name, args in passes.items():
@@ -715,14 +810,15 @@ def garden_cell(chk, zero_counts, counts, no_launch):
         del g, pg
         ms_b5 += ms / 2
         ms_b5_plain += ms_plain / 2
-        rows[name] = int(rows_blended(args[1], args[3]).sum())
+        rows[name], frags[name] = needed(f"B5 {name}", *args[:4], cfg)
         # table rows and ids read, 9 gradients + id written per row; g_rgb,
         # g_trans, out_trans, suffix and t_entry per pixel; segments,
         # nproc, goff; the checkpoint buffer
         b5_bytes += rows[name] * (BLEND_ATTR_BYTES + 4 + 10 * 4) \
             + ntile * 256 * 7 * 4 + seg_bytes + 2 * ntile * 4 \
             + args[5].numel() * 4
-    rows_b4 = int(rows_blended(f["rstarts_c"], nproc2).sum())
+    rows_b4, frags_b4 = needed("B4", f["table2"], f["rstarts_c"],
+                               f["rcounts"], nproc2, cfg)
     log(f"[garden] kernels alone (CUDA events): B4 {ms_b4:.3f} ms, B5 "
         f"{ms_b5:.3f} ms per launch; plain (host clock): B4 "
         f"{ms_b4_plain:.3f} ms, B5 {ms_b5_plain:.3f} ms per launch; rows "
@@ -731,11 +827,11 @@ def garden_cell(chk, zero_counts, counts, no_launch):
         f"{int((f['rcounts'] > 0).sum())} tiles, "
         f"{int((f['pcounts'] >= cfg.prefix_rows).sum())} tiles filled "
         f"their {cfg.prefix_rows}-row prefix")
-    bound_b4 = bound("B4", rows_b4 * 256 * FLOPS_PER_FRAGMENT,
+    bound_b4 = bound("B4", frags_b4 * FLOPS_PER_FRAGMENT,
                      rows_b4 * BLEND_ATTR_BYTES + ntile * 256 * 5 * 4
                      + seg_bytes + ntile * 4 + ckpt2.numel() * 4)
-    b5_rows = rows["pass 1"] + rows["pass 2"]
-    b5 = bound("B5 (both launches)", b5_rows * 256 * FLOPS_PER_FRAGMENT_B3,
+    b5 = bound("B5 (both launches)",
+               (frags["pass 1"] + frags["pass 2"]) * FLOPS_PER_FRAGMENT_B3,
                b5_bytes)
     return {"counts": out["fused"], "ms_b4": ms_b4,
             "ms_b4_plain": ms_b4_plain, "bound_b4": bound_b4,
@@ -992,6 +1088,548 @@ def sharded_cell(chk, zero_counts, counts, no_launch, scene, view, proj, eye,
     log(f"[sharded] phase {time.perf_counter() - t_phase:.2f} s")
 
 
+def fused_serving(cfg, prefix_rows):
+    """cfg on the fused serving path (B1 then B4 with train=False) with a
+    prefix of ``prefix_rows`` rows per tile."""
+    return cfg.with_(fused_grad=True, prefix_rows=prefix_rows,
+                     residual_budget_rows=FUSED_RESIDUAL_ROWS)
+
+
+def inference_vs_plain(chk, tag, splats, bs, cfg, row_offset=0,
+                       local_rows=None, row_stride=1):
+    """B1 on a binned table and B4 (train=False) on the fused serving
+    path's own pass-2 inputs against their plain versions, at
+    cfg.tile_size; returns the rows pass 2 listed."""
+    from gaussiansplattingviewer_tpu_torch.ops import binning, fused
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_fwd as b1,
+    )
+
+    ts = cfg.tile_size
+    args = (bs.table, bs.tile_starts, bs.tile_counts, row_offset, cfg,
+            local_rows, row_stride)
+    rgb, trans = b1.tile_raster_fwd(*args)
+    torch.cuda.synchronize()
+    prgb, ptrans = b1.tile_raster_fwd_plain(*args)
+    chk.close(f"B1 t{ts}", f"{tag} B1 rgb", rgb, prgb)
+    chk.close(f"B1 t{ts}", f"{tag} B1 T", trans, ptrans)
+
+    if local_rows is None:
+        local_rows = cfg.tiles_y
+    cf = fused_serving(cfg, GOLDEN_PREFIX[ts])
+    pres = binning.bin_splats_presort(splats, cf, row_offset, local_rows,
+                                      row_stride)
+    f = fused._forward(cf, local_rows, row_stride, pres.table_src,
+                       pres.rows_sorted, pres.starts_full, row_offset,
+                       train=False)
+    seeded = (f["table2"], f["rstarts_c"], f["rcounts"], f["trans1"],
+              row_offset, cf, local_rows, row_stride)
+    rgb2, trans2 = b1.tile_raster_fwd_seeded(*seeded)
+    torch.cuda.synchronize()
+    prgb2, ptrans2 = b1.tile_raster_fwd_seeded_plain(*seeded)
+    chk.close(f"B4 t{ts}", f"{tag} B4 inference rgb", rgb2, prgb2)
+    chk.equal(f"B4 t{ts}", f"{tag} B4 inference T", trans2, ptrans2)
+    return int(f["rcounts"].sum())
+
+
+def training_tiles_refused(counts):
+    """CUDA tensors at tile 8 through B2, B4 train, B3 and B5 raise (the
+    JAX train kernel's 256-pixel checkpoint layout) and nothing launches."""
+    from gaussiansplattingviewer_tpu_torch.config import RenderConfig
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_bwd as b3,
+    )
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_fwd as b1,
+    )
+
+    cfg = RenderConfig(width=64, height=48, tile_size=8)
+    nt = cfg.num_tiles
+    z = dict(device=DEVICE)
+    table = torch.zeros((16, 600), **z)
+    starts = torch.zeros(nt + 1, dtype=torch.int32, **z)
+    cnt = torch.zeros(nt, dtype=torch.int32, **z)
+    per_tile = torch.ones((nt, 64), **z)
+    ckpt = torch.zeros((1, 600), **z)
+    g_rgb = torch.zeros((nt, 64, 3), **z)
+    calls = {
+        "B2": lambda: b1.tile_raster_fwd_train(table, starts, cnt, 0, cfg),
+        "B4 train": lambda: b1.tile_raster_fwd_seeded(
+            table, starts, cnt, per_tile, 0, cfg, train=True),
+        "B3": lambda: b3.tile_raster_bwd(table, starts, cnt, cnt, ckpt, 0,
+                                         g_rgb, per_tile, per_tile, cfg),
+        "B5": lambda: b3.tile_raster_bwd_fused(
+            table, starts, cnt, cnt, cnt, ckpt, 0, g_rgb, per_tile, per_tile,
+            per_tile, per_tile, 1024, cfg)}
+    before = counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            log(f"[tiles] {name} at tile 8 on the card refused: "
+                f"{str(e)[:110]}...")
+        else:
+            raise AssertionError(f"{name} ran at tile 8 on the card")
+    if counts() != before:
+        raise AssertionError(f"a refused kernel launched: {counts()}")
+
+
+def served_at_tile(chk, zero_counts, counts, no_launch, scene, view, proj,
+                   eye, cfg, smi):
+    """The 1M frame at cfg.tile_size: 3 frames through render() (B1 once
+    each), and B1 alone on the frame's table against its plain version,
+    its bound from the fragments the frame needs.  Returns its numbers and
+    the last frame."""
+    from gaussiansplattingviewer_tpu_torch.ops import binning
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_fwd as b1,
+    )
+    from gaussiansplattingviewer_tpu_torch.ops.projection import project
+    from gaussiansplattingviewer_tpu_torch.ops.render import (
+        render,
+        render_with_aux,
+    )
+
+    ts, dev = cfg.tile_size, scene.xyz.device
+    pixels, ntile = ts * ts, cfg.num_tiles
+    seg_bytes = (2 * ntile + 1) * 4
+    out = {}
+    with torch.no_grad():
+        render(scene, view, proj, eye, cfg)  # warm-up
+        zero_counts()
+        frame_ms = []
+        for _ in range(3):
+            ms, (img, aux) = host_ms(
+                lambda: render_with_aux(scene, view, proj, eye, cfg))
+            frame_ms.append(ms)
+        out["launches"] = counts()["B1"]
+        if counts() != {**no_launch, "B1": 3}:
+            raise AssertionError(f"tile {ts}: 3 frames launched {counts()}")
+        img_np = img.cpu().numpy()
+        if img_np.shape != (FULL_H, FULL_W, 3) \
+                or not np.isfinite(img_np).all() or not img_np.std() > 0.01:
+            raise AssertionError(f"tile {ts}: the frame is not an image")
+        if int(aux["truncated"]) or int(aux["overflow"]):
+            raise AssertionError(f"tile {ts}: rows dropped {aux}")
+
+        bs = binning.bin_splats(project(scene, view, proj, eye, cfg), cfg)
+        args = (bs.table, bs.tile_starts, bs.tile_counts, 0, cfg)
+        b1.tile_raster_fwd(*args)  # warm-up
+        out["ms"], (rgb, trans) = cuda_ms(lambda: b1.tile_raster_fwd(*args),
+                                          10)
+        px, py = b1.tile_pixel_grid(cfg, cfg.tiles_y, device=dev)
+        out["plain_ms"], (prgb, ptrans, nproc) = host_ms(
+            lambda: b1.blend_tiles_plain(bs.table, bs.tile_starts[:-1],
+                                         bs.tile_counts, px, py, cfg))
+        key = f"B1 t{ts}"
+        chk.close(key, f"1M 1080p tile {ts} B1 rgb", rgb, prgb)
+        chk.close(key, f"1M 1080p tile {ts} B1 T", trans, ptrans)
+        rows, frags = needed(f"B1 tile {ts}", bs.table, bs.tile_starts,
+                             bs.tile_counts, nproc, cfg)
+        out["bound"] = bound(
+            f"B1 tile {ts}", frags * FLOPS_PER_FRAGMENT,
+            rows * BLEND_ATTR_BYTES + ntile * pixels * 4 * 4 + seg_bytes)
+        dups = int(bs.tile_counts.sum())
+        del bs, args, rgb, trans, prgb, ptrans, px, py
+    log(f"[tiles] 1M SH3 {FULL_W}x{FULL_H} tile {ts} ({ntile} tiles, {dups} "
+        f"rows listed, {rows} blended): frames "
+        f"{[f'{m:.3f}' for m in frame_ms]} ms, B1 {out['ms']:.3f} ms "
+        f"(CUDA events), plain {out['plain_ms']:.3f} ms, bound "
+        f"{out['bound'][0]:.4f} ms; {smi}")
+    out["img"] = img
+    return out
+
+
+def fused_served_at_tile(chk, zero_counts, counts, no_launch, scene, view,
+                         proj, eye, cfg, img, smi):
+    """The 1M frame on the fused serving path at cfg.tile_size: 2 frames
+    (B1 and B4 once each) against the classic frame ``img``, and B4 alone
+    on its pass-2 inputs against its plain version, its bound from the
+    fragments pass 2 needs."""
+    from gaussiansplattingviewer_tpu_torch.ops import binning, fused
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_fwd as b1,
+    )
+    from gaussiansplattingviewer_tpu_torch.ops.projection import project
+    from gaussiansplattingviewer_tpu_torch.ops.render import (
+        render,
+        render_with_aux,
+    )
+
+    ts, dev = cfg.tile_size, scene.xyz.device
+    pixels, ntile = ts * ts, cfg.num_tiles
+    seg_bytes = (2 * ntile + 1) * 4
+    out = {}
+    with torch.no_grad():
+        cf = fused_serving(cfg, FULL_PREFIX[ts])
+        render(scene, view, proj, eye, cf)  # warm-up
+        zero_counts()
+        fused_ms = []
+        for _ in range(2):
+            ms, (fimg, faux) = host_ms(
+                lambda: render_with_aux(scene, view, proj, eye, cf))
+            fused_ms.append(ms)
+        out["b4_launches"] = counts()["B4"]
+        if counts() != {**no_launch, "B1": 2, "B4": 2}:
+            raise AssertionError(f"tile {ts}: 2 fused frames launched "
+                                 f"{counts()}")
+        if int(faux["truncated"]):
+            raise AssertionError(f"tile {ts} fused: rows dropped {faux}")
+        fused_err = float((fimg - img).abs().max())
+        pres = binning.bin_splats_presort(project(scene, view, proj, eye, cf),
+                                          cf)
+        f = fused._forward(cf, cf.tiles_y, 1, pres.table_src,
+                           pres.rows_sorted, pres.starts_full, 0,
+                           train=False)
+        del pres
+        seeded = (f["table2"], f["rstarts_c"], f["rcounts"], f["trans1"], 0,
+                  cf)
+        b1.tile_raster_fwd_seeded(*seeded)  # warm-up
+        out["b4_ms"], (rgb2, trans2) = cuda_ms(
+            lambda: b1.tile_raster_fwd_seeded(*seeded), 10)
+        px, py = b1.tile_pixel_grid(cf, cf.tiles_y, device=dev)
+        out["b4_plain_ms"], (prgb2, ptrans2, nproc2) = host_ms(
+            lambda: b1.blend_tiles_plain(f["table2"], f["rstarts_c"][:-1],
+                                         f["rcounts"], px, py, cf,
+                                         t_init=f["trans1"]))
+        key = "B4" if ts == 16 else f"B4 t{ts}"
+        chk.close(key, f"1M 1080p tile {ts} B4 inference rgb", rgb2, prgb2)
+        chk.equal(key, f"1M 1080p tile {ts} B4 inference T", trans2, ptrans2)
+        rows2, frags2 = needed(f"B4 inference tile {ts}", f["table2"],
+                               f["rstarts_c"], f["rcounts"], nproc2, cf)
+        out["b4_bound"] = bound(
+            f"B4 inference tile {ts}", frags2 * FLOPS_PER_FRAGMENT,
+            rows2 * BLEND_ATTR_BYTES + ntile * pixels * 5 * 4 + seg_bytes)
+        del f, seeded, rgb2, trans2, prgb2, ptrans2, px, py
+    log(f"[tiles] 1M SH3 {FULL_W}x{FULL_H} tile {ts} fused (K "
+        f"{cf.prefix_rows}) frames {[f'{m:.3f}' for m in fused_ms]} ms, "
+        f"max|fused - classic| {fused_err:.3e}, pass 2 {rows2} rows blended,"
+        f" B4 {out['b4_ms']:.3f} ms, plain {out['b4_plain_ms']:.3f} ms, "
+        f"bound {out['b4_bound'][0]:.4f} ms; {smi}")
+    return out
+
+
+def colmap_dir(path, n, dist):
+    """A COLMAP sparse dir of n poses about ``dist`` from the origin and
+    looking at it (tests/test_apps.py's poses, moved out)."""
+    path.mkdir(parents=True, exist_ok=True)
+    lines = ["# images.txt"]
+    for i in range(n):
+        q = np.array([0.02 * i, 0.01 * i, 1.0, 0.0])
+        q /= np.linalg.norm(q)
+        t = [0.1 * i, 0.05 * i, -dist]
+        lines += [f"{i + 1} {q[0]} {q[1]} {q[2]} {q[3]} {t[0]} {t[1]} {t[2]} "
+                  f"1 im{i}.png", "0 0 1"]
+    (path / "images.txt").write_text("\n".join(lines) + "\n")
+    (path / "cameras.txt").write_text(
+        "1 PINHOLE 1160 522 3443.9 3443.9 580 261\n")
+    return path
+
+
+def run_app(main, argv, zero_counts, counts, no_launch, want_b1, tag):
+    """One app through its main(argv): exit 0 and B1 launched want_b1
+    times; returns (seconds, captured stderr)."""
+    err = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts()
+    for line in err.getvalue().splitlines():
+        log(f"[apps] {tag}: {line}")
+    log(f"[apps] {tag}: rc {rc} in {secs:.3f} s, launches {got}")
+    if rc != 0:
+        raise AssertionError(f"{tag} exited {rc}")
+    if got != {**no_launch, "B1": want_b1}:
+        raise AssertionError(f"{tag}: launches {got}, want B1 {want_b1}")
+    return secs, err.getvalue()
+
+
+def png_encoders(work, rgb8, disp16, smi):
+    """The native PNG encoders (image_io's first choice) against PIL (its
+    fallback) on one 1080p frame and one disparity map, both at zlib level
+    6: host ms per image, mean of 3, and the decoded pixels equal."""
+    import ctypes
+
+    from PIL import Image
+
+    from gaussiansplattingviewer_tpu_torch import native
+    from gaussiansplattingviewer_tpu_torch.utils.image_io import read_image
+
+    lib = native.get_lib()
+    for name, arr in (("rgb8", rgb8), ("disparity16", disp16)):
+        data = np.ascontiguousarray(arr)
+        h, w = arr.shape[:2]
+        p_nat, p_pil = work / f"native_{name}.png", work / f"pil_{name}.png"
+        if arr.dtype == np.uint8:
+            write, ptr = lib.gsv_write_png_rgb8, ctypes.c_uint8
+        else:
+            write, ptr = lib.gsv_write_png_gray16, ctypes.c_uint16
+
+        def nat():
+            if write(str(p_nat).encode(), w, h,
+                     data.ctypes.data_as(ctypes.POINTER(ptr)), 6) != 0:
+                raise AssertionError(f"the native {name} encoder failed")
+
+        times = {}
+        for key, fn in (("native", nat),
+                        ("PIL", lambda: Image.fromarray(data).save(p_pil))):
+            fn()  # warm-up
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            times[key] = (time.perf_counter() - t0) / 3 * 1e3
+        same = np.array_equal(read_image(p_nat), read_image(p_pil))
+        log(f"[native] PNG {name} {w}x{h}: native {times['native']:.1f} ms "
+            f"({p_nat.stat().st_size} B), PIL {times['PIL']:.1f} ms "
+            f"({p_pil.stat().st_size} B), decoded equal {same}; {smi}")
+        if not same:
+            raise AssertionError(f"native and PIL {name} PNGs differ")
+
+
+def apps_cell(chk, zero_counts, counts, no_launch, work, scene_dir, golden,
+              smi):
+    """The apps at full size on the 1M PLY (phase 6's): native load, the
+    viewer (8-frame orbit and a DEPTH frame, FrameTimer, a trace),
+    dataset_gen (4 poses, resume, disparity PNG against a direct render),
+    eval on its triplets, render_all over two scene dirs, serve
+    --gs-model, and compare_backends on the golden scene."""
+    from gaussiansplattingviewer_tpu_torch import native
+    from gaussiansplattingviewer_tpu_torch.apps import (
+        dataset_gen,
+        render_all,
+        serve,
+        viewer,
+    )
+    from gaussiansplattingviewer_tpu_torch.config import (
+        RenderConfig,
+        RenderMode,
+    )
+    from gaussiansplattingviewer_tpu_torch.eval import compare, metrics
+    from gaussiansplattingviewer_tpu_torch.eval import reproject
+    from gaussiansplattingviewer_tpu_torch.models import random_scene, save_ply
+    from gaussiansplattingviewer_tpu_torch.models.ply import load_ply
+    from gaussiansplattingviewer_tpu_torch.ops.render import (
+        render,
+        render_with_aux,
+    )
+    from gaussiansplattingviewer_tpu_torch.utils import colmap, profiling
+    from gaussiansplattingviewer_tpu_torch.utils import transforms as tf
+    from gaussiansplattingviewer_tpu_torch.utils.camera import Camera
+    from gaussiansplattingviewer_tpu_torch.utils.image_io import read_image
+
+    t_phase = time.perf_counter()
+    ply = viewer.find_ply(str(scene_dir))
+    size = ["--width", FULL_W, "--height", FULL_H]
+
+    # native PLY load, bit-equal to numpy's
+    status = native.status()
+    log(f"[native] host I/O path: {status}")
+    t_np, (sc_np, bb_np, c_np) = host_ms(lambda: load_ply(ply,
+                                                          use_native=False))
+    if native.get_lib() is not None:
+        t_nat, (sc_nat, bb_nat, c_nat) = host_ms(lambda: load_ply(ply))
+        same = all(torch.equal(getattr(sc_nat, f), getattr(sc_np, f))
+                   for f in FIELDS) and np.array_equal(bb_nat, bb_np) \
+            and np.array_equal(c_nat, c_np)
+        log(f"[native] 1M PLY load: native {t_nat:.1f} ms, numpy "
+            f"{t_np:.1f} ms, bit-equal {same}")
+        if not same:
+            raise AssertionError("the native PLY load differs from numpy's")
+        del sc_nat
+    else:
+        log(f"[native] not built: PLYs load with numpy ({t_np:.1f} ms) and "
+            f"PNGs are written by PIL / numpy")
+
+    # the viewer: an 8-frame orbit and a DEPTH frame, B1 once per frame
+    secs, _ = run_app(viewer.main, ["--gs-model", scene_dir, "--orbit", 8,
+                                    "--fovy", 1.0, "--out", work / "orbit",
+                                    *size], zero_counts, counts, no_launch,
+                      8, "viewer --orbit 8")
+    frames = sorted(p.name for p in (work / "orbit").iterdir())
+    first = read_image(work / "orbit" / "0.png")
+    if len(frames) != 8 or first.shape != (FULL_H, FULL_W, 3) \
+            or not first.std() > 1:
+        raise AssertionError(f"viewer frames {frames}, {first.shape}")
+    run_app(viewer.main, ["--gs-model", scene_dir, "--mode", "depth",
+                          "--fovy", 1.0, "--out", work / "depth", *size],
+            zero_counts, counts, no_launch, 1, "viewer --mode depth")
+    depth = read_image(work / "depth" / "0.png")
+    if depth.dtype != np.uint16 or depth.shape != (FULL_H, FULL_W) \
+            or not depth.max() > 0:
+        raise AssertionError(f"DEPTH frame {depth.dtype} {depth.shape}")
+    if native.get_lib() is not None:
+        png_encoders(work, first, depth, smi)
+
+    # the viewer's frame in FrameTimer, and a short trace of it
+    scene, bbox, center = viewer.load_scene(str(scene_dir))
+    scene = scene.pad_to_multiple(256).to(DEVICE)
+    cfg = RenderConfig(width=FULL_W, height=FULL_H)
+    cam = Camera(h=FULL_H, w=FULL_W)
+    cam.fovy = 1.0
+    proj = cam.get_project_matrix()
+    extent = float(np.linalg.norm(np.asarray(bbox[1]) - np.asarray(bbox[0])))
+    eye = (np.asarray(center, np.float64) + [0.0, 0.0, extent]).astype(
+        np.float32)
+    view = tf.look_at(eye, center, [0, -1, 0])
+    with torch.no_grad():
+        def frame():
+            return render(scene, view, proj, eye, cfg)
+
+        zero_counts()
+        timer = profiling.FrameTimer(frame, pixels=FULL_W * FULL_H,
+                                     splats=len(scene))
+        stats = timer.run(iters=5, warmup=2)
+        if counts() != {**no_launch, "B1": 7}:
+            raise AssertionError(f"FrameTimer launches {counts()}")
+        trace_dir = Path("chiprun_out") / "chip_smoke_viewer_trace"
+        with profiling.trace(str(trace_dir)) as prof:
+            timer.run(iters=2, warmup=1)
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        b1_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if "tile_raster_fwd_kernel" in e.key)
+        _, aux = render_with_aux(scene, view, proj, eye, cfg)
+    log(f"[apps] viewer frame (FrameTimer, 5 frames): "
+        f"{stats['ms_per_frame']:.3f} ms/frame, {stats['mpix_s']:.1f} Mpix/s,"
+        f" {stats['msplats_s']:.1f} Msplats/s; traced 3 frames: device "
+        f"{dev_us / 3e3:.3f} ms/frame, B1 {b1_us / 3e3:.3f} ms/frame "
+        f"(trace in {trace_dir}); render_stats {profiling.render_stats(aux)};"
+        f" orbit {secs / 8 * 1e3:.1f} ms/frame with PNG; {smi}")
+    del scene
+
+    # dataset_gen: 4 poses, B1 three times per pose; a second run resumes
+    sparse = colmap_dir(scene_dir / "sparse" / "0", 4, 12.0)
+    gen_argv = ["--gs-model", scene_dir, "--colmap-poses", sparse,
+                "--out", work / "dataset", *size]
+    secs, _ = run_app(dataset_gen.main, gen_argv, zero_counts, counts,
+                      no_launch, 12, "dataset_gen (4 poses)")
+    out_dir = work / "dataset" / scene_dir.name
+    manifest = json.loads((out_dir / "manifest.json").read_text())
+    if manifest["rendered_this_run"] != 4:
+        raise AssertionError(f"dataset_gen manifest {manifest}")
+    run_app(dataset_gen.main, gen_argv, zero_counts, counts, no_launch, 0,
+            "dataset_gen again (resume)")
+    manifest = json.loads((out_dir / "manifest.json").read_text())
+    if manifest["rendered_this_run"] != 0:
+        raise AssertionError(f"the resumed run rendered {manifest}")
+    log(f"[apps] dataset_gen: {secs / 4 * 1e3:.1f} ms per triplet with 3 "
+        f"PNGs; {smi}")
+
+    # the disparity PNG against a direct DEPTH render of pose 0
+    poses, _ = colmap.load_sparse_dir(sparse)
+    view_l, _, cam_l, _ = colmap.pose_to_stereo_views(poses[0],
+                                                      baseline=-0.5)
+    scene = viewer.load_scene(str(scene_dir))[0].pad_to_multiple(256)
+    cfg_d = RenderConfig(width=FULL_W, height=FULL_H, mode=RenderMode.DEPTH,
+                         stereo_baseline=-0.5)
+    with torch.no_grad():
+        disp = render(scene, view_l, Camera(h=FULL_H, w=FULL_W)
+                      .get_project_matrix(), cam_l, cfg_d,
+                      device=DEVICE)[..., 0].cpu().numpy()
+    want = np.clip(disp * 65535.0, 0, 65535).astype(np.uint16)
+    d16 = read_image(out_dir / "depth" / "0.png")
+    lsb = int(np.abs(d16.astype(np.int64) - want.astype(np.int64)).max())
+    log(f"[apps] disparity PNG against render(DEPTH) x 65535: max "
+        f"{lsb} LSB (tol 1), max disparity {int(want.max())}")
+    if lsb > 1 or not want.max() > 0:
+        raise AssertionError("the disparity PNG disagrees with render()")
+    del scene
+
+    # eval on the triplets: left/right PSNR and SSIM, the point cloud
+    left = read_image(out_dir / "left" / "0.png")
+    right = read_image(out_dir / "right" / "0.png")
+    focal = Camera(h=FULL_H, w=FULL_W).get_focal()
+    pts, cols = reproject.disparity_to_pointcloud(
+        reproject.disparity16_to_pixels(d16, FULL_W), focal, 0.5, rgb=left,
+        stride=4)
+    p, s = metrics.psnr(left, right), metrics.ssim(left, right)
+    log(f"[eval] triplet 0: PSNR(left, right) {p:.3f} dB, SSIM {s:.4f}; "
+        f"point cloud {len(pts)} points, depth {pts[:, 2].min():.3f} .. "
+        f"{pts[:, 2].max():.3f}")
+    if not (np.isfinite(p) and np.isfinite(s) and len(pts) > 0
+            and np.isfinite(pts).all() and cols.shape == pts.shape):
+        raise AssertionError("eval on the triplets failed")
+
+    # render_all over two scene dirs (the 1M PLY and the golden scene)
+    root = work / "scenes"
+    (root / "a_1m").mkdir(parents=True)
+    (root / "a_1m" / "point_cloud").symlink_to(scene_dir / "point_cloud")
+    gply = root / "b_golden" / "point_cloud" / "iteration_30000"
+    gply.mkdir(parents=True)
+    save_ply(golden, gply / "point_cloud.ply")
+    colmap_dir(root / "a_1m" / "sparse" / "0", 2, 12.0)
+    colmap_dir(root / "b_golden" / "sparse" / "0", 2, 9.0)
+    report = work / "render_all.json"
+    secs, _ = run_app(render_all.main, ["--scenes-root", root, "--out",
+                                        work / "render_all", "--report",
+                                        report, *size],
+                      zero_counts, counts, no_launch, 12, "render_all")
+    rep = json.loads(report.read_text())
+    if rep != {"a_1m": "ok", "b_golden": "ok"}:
+        raise AssertionError(f"render_all report {rep}")
+
+    # serve --gs-model: one /render at 1920x1080
+    args = serve.build_parser().parse_args(
+        ["--gs-model", str(scene_dir), "--width", str(FULL_W), "--height",
+         str(FULL_H), "--device", DEVICE])
+    state = serve.build_state(args)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(state))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.server_address[1]}/render?yaw=0.4"
+                f"&pitch=0.3&mode=sh3", timeout=120) as r:
+            status, body = r.status, r.read()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    log(f"[apps] serve --gs-model ({len(state.scene)} splats): GET /render "
+        f"-> {status}, {len(body)} B, {ms:.1f} ms, launches {counts()}")
+    if status != 200 or body[:8] != b"\x89PNG\r\n\x1a\n" \
+            or counts() != {**no_launch, "B1": 1}:
+        raise AssertionError("serve --gs-model did not render through B1")
+    del state
+
+    # compare_backends: kernel against oracle on the flip harness's scene
+    # and on the golden scene
+    flip = random_scene(400, sh_degree=1, seed=17, extent=2.0,
+                        mean_scale=0.06).to(DEVICE)
+    eye_f = np.array([0.0, 0.0, 3.0], np.float32)
+    cam3 = Camera(h=GOLDEN_H, w=GOLDEN_W)
+    cam3.fovy = 1.0
+    eye3 = np.array([0.5, -0.4, 6.0], np.float32)
+    with torch.no_grad():
+        res_f = compare.compare_backends(
+            flip, tf.look_at(eye_f, [0, 0, 0], [0, -1, 0]),
+            Camera(h=64, w=96).get_project_matrix(), eye_f,
+            RenderConfig(width=96, height=64), device=DEVICE)
+        res = compare.compare_backends(
+            golden, tf.look_at(eye3, [0, 0, 0], [0, -1, 0]),
+            cam3.get_project_matrix(), eye3,
+            RenderConfig(width=GOLDEN_W, height=GOLDEN_H), device=DEVICE)
+    kvo_f, kvo = res_f["kernel_vs_oracle"], res["kernel_vs_oracle"]
+    d = np.abs(res["images"]["kernel"] - res["images"]["oracle"]).max(-1)
+    log(f"[eval] compare_backends flip scene 400 splats 96x64: kernel vs "
+        f"oracle {kvo_f} (tol max_abs {COMPARE_TOL})")
+    log(f"[eval] compare_backends golden 10k {GOLDEN_W}x{GOLDEN_H}: kernel "
+        f"vs oracle {kvo}, {int((d > COMPARE_TOL).sum())} of {d.size} "
+        f"pixels above {COMPARE_TOL} (tol mean_abs "
+        f"{GOLDEN_COMPARE['mean_abs']}, psnr {GOLDEN_COMPARE['psnr']} dB)")
+    if not (kvo_f["max_abs"] <= COMPARE_TOL
+            and kvo["mean_abs"] <= GOLDEN_COMPARE["mean_abs"]
+            and kvo["psnr"] >= GOLDEN_COMPARE["psnr"]):
+        raise AssertionError("kernel and oracle disagree")
+    log(f"[apps] phase {time.perf_counter() - t_phase:.2f} s")
+
+
 def bound(name, flops, nbytes):
     """(bound ms, what bounds it) from the work this run's data needs."""
     ops_ms = flops / PEAK_FP32_FLOPS * 1e3
@@ -1039,6 +1677,9 @@ def main() -> int:
     from gaussiansplattingviewer_tpu_torch.utils.camera import Camera
 
     t_start = time.perf_counter()
+    # files of the run (PLYs, frames, datasets), removed at exit
+    work_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    work = Path(work_dir.name)
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1085,7 +1726,12 @@ def main() -> int:
         "B4 train": lambda m: b1.kernel_occupancy(m, train=True,
                                                   seeded=True),
         "B3": lambda m: b3.kernel_occupancy(m, False),
-        "B5": lambda m: b3.kernel_occupancy(m, True)}
+        "B5": lambda m: b3.kernel_occupancy(m, True),
+        **{f"{k} tile {ts}": (lambda m, ts=ts, seeded=seeded:
+                              b1.kernel_occupancy(m, seeded=seeded,
+                                                  tile_size=ts))
+           for ts in TILE_SIZES for k, seeded in (("B1", False),
+                                                   ("B4", True))}}
     for key, query in occupancy.items():
         for mode in (RenderMode.SH3, RenderMode.BILLBOARD,
                      RenderMode.FLAT_BALL, RenderMode.GAUSSIAN_BALL):
@@ -1154,6 +1800,30 @@ def main() -> int:
     fused_vs_plain(chk, "10k band (rows 1::2)", splats_of(scene3, cfg),
                    cfg.with_(**GOLDEN_FUSED), 1, band_rows, 2)
 
+    # ---- 3b. tile sizes 8 and 32 (B1, B4 inference) on the golden scene
+    for ts in TILE_SIZES:
+        rows2 = 0
+        for name in GOLDEN_MODES:
+            cfg = RenderConfig(width=GOLDEN_W, height=GOLDEN_H,
+                               mode=RenderMode[name], tile_size=ts)
+            rows2 += inference_vs_plain(chk, f"10k tile {ts} {name}",
+                                        splats_of(scene3, cfg),
+                                        binned(scene3, cfg), cfg)
+        cfg = RenderConfig(width=GOLDEN_W, height=GOLDEN_H, tile_size=ts)
+        inference_vs_plain(chk, f"10k tile {ts} opaque",
+                           splats_of(opaque, cfg), binned(opaque, cfg), cfg)
+        band_rows = cfg.tiles_y // 2
+        inference_vs_plain(
+            chk, f"10k tile {ts} band (rows 1::2)", splats_of(scene3, cfg),
+            binned(scene3, cfg, row_offset=1, local_rows=band_rows,
+                   row_stride=2), cfg, 1, band_rows, 2)
+        log(f"[tiles] 10k tile {ts}: residual passes listed {rows2} rows "
+            f"over the 7 modes")
+        if rows2 == 0:
+            raise AssertionError(f"tile {ts}: the residual pass had no work")
+    training_tiles_refused(counts)
+    del opaque
+
     # ---- 4. the serving path at full size
     cfg4 = RenderConfig(width=FULL_W, height=FULL_H)
     cam4 = Camera(h=FULL_H, w=FULL_W)
@@ -1190,13 +1860,15 @@ def main() -> int:
     chk.close("B1", "1M 1080p 256 sampled tiles B1 rgb", rgb[sample], srgb)
     chk.close("B1", "1M 1080p 256 sampled tiles B1 T", trans[sample], strans)
 
-    # the work this run's data needs: the rows each tile actually blended
+    # the work this run's data needs: the fragments in the rects of the
+    # rows each tile actually blended
     ntile = cfg4.num_tiles
-    rows = int(rows_blended(bs.tile_starts, nproc).sum())
+    rows, frags = needed("B1", bs.table, bs.tile_starts, bs.tile_counts,
+                         nproc, cfg4)
     log(f"[full] blend rows {int(bs.tile_counts.sum())} listed, {rows} "
         f"blended before the early stop")
     seg_bytes = (2 * ntile + 1) * 4
-    bound_b1 = bound("B1", rows * 256 * FLOPS_PER_FRAGMENT,
+    bound_b1 = bound("B1", frags * FLOPS_PER_FRAGMENT,
                      rows * BLEND_ATTR_BYTES + ntile * 256 * 4 * 4
                      + seg_bytes)
 
@@ -1228,6 +1900,18 @@ def main() -> int:
     if not (img_np.mean() > 0.01 and img_np.std() > 0.01):
         raise AssertionError("full-size image is blank")
     del splats, bs, rgb, trans, prgb, ptrans, srgb, strans
+
+    # ---- 4b. the serving path at tile sizes 8 and 32 (16 is phase 4's),
+    # and the fused serving path at 8, 16 and 32
+    tiles = {ts: served_at_tile(chk, zero_counts, counts, no_launch, big,
+                                view4, proj4, eye4,
+                                cfg4.with_(tile_size=ts), smi)
+             for ts in TILE_SIZES}
+    tiles[16] = {"img": img}
+    for ts in (8, 16, 32):
+        tiles[ts].update(fused_served_at_tile(
+            chk, zero_counts, counts, no_launch, big, view4, proj4, eye4,
+            cfg4.with_(tile_size=ts), tiles[ts].pop("img"), smi))
 
     # ---- 5. the training step at full size
     sc = GaussianData(*(getattr(big, f).detach().clone().requires_grad_(True)
@@ -1278,12 +1962,13 @@ def main() -> int:
     log(f"[train] plain versions (host clock): B2 {ms_b2_plain:.3f} ms, "
         f"B3 {ms_b3_plain:.3f} ms")
 
-    rows = int(rows_blended(bs.tile_starts, nproc).sum())
+    rows, frags = needed("B2, B3", bs.table, bs.tile_starts, bs.tile_counts,
+                         nproc, cfg4)
     dpad = bs.table.shape[1]
-    bound_b2 = bound("B2", rows * 256 * FLOPS_PER_FRAGMENT,
+    bound_b2 = bound("B2", frags * FLOPS_PER_FRAGMENT,
                      rows * BLEND_ATTR_BYTES + ntile * 256 * 4 * 4
                      + seg_bytes + ntile * 4 + 2 * dpad * 4)
-    bound_b3 = bound("B3", rows * 256 * FLOPS_PER_FRAGMENT_B3,
+    bound_b3 = bound("B3", frags * FLOPS_PER_FRAGMENT_B3,
                      rows * BLEND_ATTR_BYTES + ntile * 256 * 5 * 4
                      + seg_bytes + ntile * 4 + 2 * dpad * 4
                      + 16 * dpad * 4)
@@ -1337,32 +2022,33 @@ def main() -> int:
             raise AssertionError(f"the {name} gradient is zero or not finite")
     del sc, params
 
-    # ---- 6. the trainer through its CLI
-    with tempfile.TemporaryDirectory() as tmp:
-        ply = Path(tmp) / "scene.ply"
-        t0 = time.perf_counter()
-        save_ply(scene_1m, ply)
-        log(f"[trainer] {FULL_SPLATS} splats written to a PLY in "
-            f"{time.perf_counter() - t0:.2f} s")
-        zero_counts()
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = train.main(["--gs-model", str(ply), "--self-distill",
-                             "--steps", "3", "--width", str(FULL_W),
-                             "--height", str(FULL_H), "--log-every", "1",
-                             "--out", str(Path(tmp) / "trained.npz")])
-        torch.cuda.synchronize()
-        trainer_s = time.perf_counter() - t0
-        trainer_counts = counts()
-        for line in out.getvalue().splitlines():
-            log(f"[trainer] {line}")
-        log(f"[trainer] rc {rc} in {trainer_s:.2f} s, launches "
-            f"{trainer_counts}")
-        if rc != 0 or "final_psnr_db" not in out.getvalue():
-            raise AssertionError("the trainer CLI failed")
-        if trainer_counts["B2"] != 3 or trainer_counts["B3"] != 3:
-            raise AssertionError("the trainer's steps missed B2/B3")
+    # ---- 6. the trainer through its CLI, on the 1M scene as a scene dir
+    scene_dir = work / "scene_1m"
+    ply = scene_dir / "point_cloud" / "iteration_30000" / "point_cloud.ply"
+    ply.parent.mkdir(parents=True)
+    t0 = time.perf_counter()
+    save_ply(scene_1m, ply)
+    log(f"[trainer] {FULL_SPLATS} splats written to a PLY in "
+        f"{time.perf_counter() - t0:.2f} s")
+    zero_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["--gs-model", str(scene_dir), "--self-distill",
+                         "--steps", "3", "--width", str(FULL_W),
+                         "--height", str(FULL_H), "--log-every", "1",
+                         "--out", str(work / "trained.npz")])
+    torch.cuda.synchronize()
+    trainer_s = time.perf_counter() - t0
+    trainer_counts = counts()
+    for line in out.getvalue().splitlines():
+        log(f"[trainer] {line}")
+    log(f"[trainer] rc {rc} in {trainer_s:.2f} s, launches "
+        f"{trainer_counts}")
+    if rc != 0 or "final_psnr_db" not in out.getvalue():
+        raise AssertionError("the trainer CLI failed")
+    if trainer_counts["B2"] != 3 or trainer_counts["B3"] != 3:
+        raise AssertionError("the trainer's steps missed B2/B3")
 
     # ---- 7. the serve app
     args = serve.build_parser().parse_args(
@@ -1405,6 +2091,12 @@ def main() -> int:
     del big, scene_1m
     torch.cuda.empty_cache()
 
+    # ---- 8b. the apps, eval and native I/O at full size
+    apps_cell(chk, zero_counts, counts, no_launch, work, scene_dir, scene3,
+              smi)
+    del scene3
+    torch.cuda.empty_cache()
+
     # ---- 9. the garden cell
     g = garden_cell(chk, zero_counts, counts, no_launch)
 
@@ -1419,6 +2111,18 @@ def main() -> int:
                 "max_abs_err": chk.err[key], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
+    # B1 and B4 (inference) at the other tile sizes, from phase 4b
+    per_tile = []
+    for ts in TILE_SIZES:
+        t = tiles[ts]
+        per_tile += [
+            entry(f"tile_raster_fwd (tile {ts})", fwd_src,
+                  "tile_raster_fwd.py:202", f"B1 t{ts}", t["launches"],
+                  t["ms"], t["plain_ms"], t["bound"]),
+            entry(f"tile_raster_fwd_seeded (tile {ts}, inference)", fwd_src,
+                  "tile_raster_fwd.py:437", f"B4 t{ts}", t["b4_launches"],
+                  t["b4_ms"], t["b4_plain_ms"], t["b4_bound"])]
+
     line = {"kernels": [
         entry("tile_raster_fwd", fwd_src, "tile_raster_fwd.py:202", "B1",
               serve_counts["B1"], ms_b1, ms_b1_plain, bound_b1),
@@ -1432,8 +2136,10 @@ def main() -> int:
         entry("tile_raster_bwd_fused", bwd_src, "tile_raster_bwd.py:536",
               "B5", g["counts"]["B5"], g["ms_b5"], g["ms_b5_plain"],
               g["bound_b5"]),
+        *per_tile,
     ]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    work_dir.cleanup()
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@ gaussiansplattingviewer_tpu_torch/csrc/tile_raster_fwd.cu) on one CUDA card.
 
 Builds the source as it is ("base") and variants of it, each with one step
 of the design switched off by a text patch, plus any other source of the
-same C interface named with --source (an earlier version of the file, say:
-`git show REV:gaussiansplattingviewer_tpu_torch/csrc/tile_raster_fwd.cu`),
+same C interface named with --source (an earlier version of the file that
+takes the tile size argument, say: `git show
+REV:gaussiansplattingviewer_tpu_torch/csrc/tile_raster_fwd.cu`), all at
+16x16 tiles,
 and times each with CUDA events on real inputs: B1 and B2 on the 1M-splat
 1920x1080 table (chip_smoke.py phases 4 and 5), B4 (train variant) on the
 same table entering with a seeded transmittance, B2 on the garden step's
@@ -91,8 +93,13 @@ _TWO_ROWS = '''      if (m) {
 # warp w holds the 8x8 quadrant (w % 2, w / 2) of the tile: lane l column
 # l % 8, rows l / 8 and l / 8 + 4 (still one column per thread)
 _QUADRANT_PIXEL = ('  return warp * 32 * kPix + i * 32 + lane;',
-                   '  return ((warp / 2) * 8 + lane / 8 + 4 * i) * kTile'
+                   '  return ((warp / 2) * 8 + lane / 8 + 4 * i) * 16'
                    ' + (warp % 2) * 8 + lane % 8;')
+# variants whose geometry holds at 16x16 only (a warp count of 0 or above
+# 16 at 8x8 or 32x32, or quadrants) leave out the other sizes' kernels
+_ONLY_16 = [
+    ("    if (tile == 8) return by_mode<8, TRAIN, SEEDED>(mode, f);\n", ""),
+    ("    if (tile == 32) return by_mode<32, TRAIN, SEEDED>(mode, f);\n", "")]
 _BAND_MASK = '''  bool x_hit = false;
 #pragma unroll
   for (int k = 0; k < kTile; ++k) {
@@ -149,11 +156,12 @@ VARIANTS = {
          " const float")], "bits"),
     "rows two at a time": ([(_ONE_ROW, _TWO_ROWS)], "bits"),
     "1 pixel per thread": ([("constexpr int kPix = 2;",
-                             "constexpr int kPix = 1;")], "bits"),
+                             "constexpr int kPix = 1;"), *_ONLY_16], "bits"),
     "4 pixels per thread": ([("constexpr int kPix = 2;",
-                              "constexpr int kPix = 4;")], "bits"),
+                              "constexpr int kPix = 4;"), *_ONLY_16],
+                            "bits"),
     "8x8 quadrants per warp": (
-        [_QUADRANT_PIXEL, (_BAND_MASK, _QUADRANT_MASK)], "bits"),
+        [_QUADRANT_PIXEL, (_BAND_MASK, _QUADRANT_MASK), *_ONLY_16], "bits"),
     "6 CTAs per SM (launch bounds)": (
         [("constexpr int kMinCtas = 32 / kWarps;",
           "constexpr int kMinCtas = 24 / kWarps;")], "bits"),

@@ -5,8 +5,12 @@ A localhost HTTP server that renders frames on demand: ``/`` is the page
 ``/render`` returns a PNG and ``/info`` the scene size as JSON.
 
 Usage:
-  python -m gaussiansplattingviewer_tpu_torch.apps.serve [--random-scene N] \
+  python -m gaussiansplattingviewer_tpu_torch.apps.serve \
+      [--gs-model scene_dir | --random-scene N] \
       [--width 960 --height 540] [--port 8008] [--device cuda]
+
+``--gs-model`` takes a scene dir or a .ply, loaded by the viewer's
+``load_scene`` (apps/viewer.py); without it the 4-splat test scene.
 """
 
 from __future__ import annotations
@@ -20,25 +24,13 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from gaussiansplattingviewer_tpu_torch.apps.viewer import MODE_NAMES, load_scene
 from gaussiansplattingviewer_tpu_torch.config import RenderConfig, RenderMode
-from gaussiansplattingviewer_tpu_torch.models import naive_gaussian, random_scene
+from gaussiansplattingviewer_tpu_torch.models import random_scene
 from gaussiansplattingviewer_tpu_torch.ops.render import render, resolve_device
 from gaussiansplattingviewer_tpu_torch.utils import transforms as tf
 from gaussiansplattingviewer_tpu_torch.utils.camera import Camera
 from gaussiansplattingviewer_tpu_torch.utils.image_io import encode_rgb8
-
-MODE_NAMES = {
-    # the reference UI's table: render_mod = idx - 3
-    "gaussian-ball": RenderMode.FLAT_BALL,
-    "billboard": RenderMode.BILLBOARD,
-    "depth": RenderMode.DEPTH,
-    "sh0": RenderMode.SH0,
-    "sh1": RenderMode.SH1,
-    "sh2": RenderMode.SH2,
-    "sh3": RenderMode.SH3,
-    "flat-ball": RenderMode.FLAT_BALL,
-    "gaussian-ball-soft": RenderMode.GAUSSIAN_BALL,
-}
 
 _PAGE = """<!doctype html>
 <html><head><title>gaussiansplattingviewer (PyTorch)</title><style>
@@ -104,15 +96,6 @@ document.getElementById('mode').onchange=refresh;
 document.getElementById('scale').oninput=refresh;
 refresh();
 </script></body></html>"""
-
-
-def load_scene(gs_model: str | None = None):
-    """(scene, bbox, center).  Only the built-in 4-splat scene for now:
-    PLY loading arrives with the apps slice."""
-    if gs_model:
-        raise NotImplementedError(
-            "PLY loading is not ported yet (apps slice); use --random-scene")
-    return naive_gaussian()
 
 
 class ViewerState:

@@ -45,8 +45,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from gaussiansplattingviewer_tpu_torch.apps.viewer import load_scene
 from gaussiansplattingviewer_tpu_torch.config import RenderConfig
-from gaussiansplattingviewer_tpu_torch.models import naive_gaussian
 from gaussiansplattingviewer_tpu_torch.models.checkpoint import (
     save_npz,
     save_train_state,
@@ -55,7 +55,6 @@ from gaussiansplattingviewer_tpu_torch.models.gaussians import (
     _FIELDS,
     GaussianData,
 )
-from gaussiansplattingviewer_tpu_torch.models.ply import load_ply
 from gaussiansplattingviewer_tpu_torch.ops.autotune import (
     autotune,
     binning_overflow,
@@ -114,27 +113,6 @@ def build_parser() -> argparse.ArgumentParser:
                     "on the current pose and RE-TUNE if the evolving scene "
                     "outgrew the config (0 = log_every; negative disables)")
     return ap
-
-
-def find_ply(gs_model: str) -> str:
-    """Resolve a scene dir to its PLY like the reference
-    (point_cloud/iteration_30000/point_cloud.ply)."""
-    if gs_model.endswith(".ply"):
-        return gs_model
-    for it in ("iteration_30000", "iteration_7000"):
-        p = os.path.join(gs_model, "point_cloud", it, "point_cloud.ply")
-        if os.path.exists(p):
-            return p
-    raise FileNotFoundError(f"no point_cloud.ply under {gs_model}")
-
-
-def load_scene(gs_model: str | None):
-    """(scene, bbox, center): the PLY of a scene dir, else the 4-splat test
-    scene (the JAX viewer's ``load_scene``, kept here until the viewer is
-    ported)."""
-    if gs_model:
-        return load_ply(find_ply(gs_model))
-    return naive_gaussian()
 
 
 def _poses_and_targets(args, scene, bbox, center, cfg, render_fn, device):

@@ -46,7 +46,8 @@ class RenderConfig:
       width, height: output resolution in pixels (reference 1160x522).
       mode: RenderMode; default SH3.
       scale_modifier: global multiplier on Gaussian scales.
-      tile_size: rasterizer tile edge; the CUDA blend kernel takes 16 only.
+      tile_size: rasterizer tile edge; on the card rendering takes 8, 16
+        or 32 and training 16 only (the JAX train kernel's limit).
       max_tiles_per_gaussian: optional cap on tiles per splat (0 = none);
         clamped splats are counted in the ``overflow`` diagnostic.
       table_budget_rows / table_budget_factor: rows of the materialized

@@ -1,12 +1,18 @@
 // Tile blend forward: front-to-back alpha blending of the depth-sorted
-// splat rows of each 16x16-pixel tile.  One kernel template, four entry
-// points:
+// splat rows of each tile.  One kernel template, four entry points:
 //
 //   gsv_tile_raster_fwd               kernel B1, the inference blend;
 //   gsv_tile_raster_fwd_train         kernel B2, B1 plus the backward's
 //                                     residuals;
 //   gsv_tile_raster_fwd_seeded        kernel B4, the fused path's residual
 //   gsv_tile_raster_fwd_seeded_train  pass (inference and train variants).
+//
+// Tile sizes: the inference variants (B1, B4) take 8x8, 16x16 and 32x32
+// tiles, as the TPU kernel does; the training variants (B2, B4 train) take
+// 16x16 only, the TPU train kernel's limit (its checkpoint is laid out for
+// 256 pixels, ops/pallas/tile_raster_fwd.py:334), which the backward (B3,
+// B5) shares.  The text below describes the 16x16 tile; Geo<TILE> gives
+// the other sizes' geometry.
 //
 // Replaces: gaussiansplattingviewer_tpu/ops/pallas/tile_raster_fwd.py,
 // _fwd_kernel (seeded=False) as launched by rasterize_binned_pallas_soa
@@ -15,11 +21,11 @@
 // rasterize_binned_pallas_seeded (B4, train=False/True).
 //
 // B4 (SEEDED) differs in one place: each pixel's transmittance starts from
-// t_init[t * 256 + p] (pass 1's exit transmittance, ops/fused.py) instead
-// of 1.0, while rgb still accumulates from zero (the caller adds pass 1's
-// rgb).  Exact by associativity of front-to-back compositing.  The tile's
-// first block keeps no checkpoint here either: the backward (B5) takes its
-// entering T from t_init.
+// t_init[t * P + p] with P = TILE * TILE (pass 1's exit transmittance,
+// ops/fused.py) instead of 1.0, while rgb still accumulates from zero (the
+// caller adds pass 1's rgb).  Exact by associativity of front-to-back
+// compositing.  The tile's first block keeps no checkpoint here either: the
+// backward (B5) takes its entering T from t_init.
 //
 // Semantics are the TPU kernel's: tile t blends table columns
 // [starts[t], starts[t] + counts[t]) read in 256-row windows aligned to
@@ -66,7 +72,10 @@
 //   * Threads own 2 pixels (128-thread CTAs, 4 warps), as in the backward
 //     (tile_raster_bwd.cu): warp w owns the 16x4-pixel band of tile rows
 //     4w .. 4w+3, lane l holds pixels p = 64w + l and p + 32 (tile rows
-//     4w + l/16 and 4w + 2 + l/16), which share the column px.  So dx,
+//     4w + l/16 and 4w + 2 + l/16), which share the column px.  A warp's
+//     band is 64 pixels at every size: all 8 rows of an 8x8 tile (one
+//     warp, 32 threads) or 2 rows of a 32x32 tile (16 warps, 512 threads,
+//     16 cull bits per row).  So dx,
 //     A dx dx, B dx and the |dx| <= rx test are computed once per row for
 //     both (power is -0.5 (A dx dx + C dy dy) - B dx dy, evaluated left to
 //     right, so (A dx) dx and B dx are its own subterms), and one staged
@@ -95,9 +104,12 @@
 //     overlap.  Taking rows two at a time (four fragments in flight)
 //     measured no faster (fwd_ablation.py), so a warp takes one at a time.
 //
-// Resources (sm_90a): 12,544 bytes of static shared memory per CTA (the
-// window as 256 x 48-byte rows, 12 KB, and the 256 cull masks); launch
-// bounds of 8 CTAs per SM (32 warps, at most 64 registers, no spills).
+// Resources (sm_90a), 16x16: 12,544 bytes of static shared memory per CTA
+// (the window as 256 x 48-byte rows, 12 KB, and the 256 cull masks);
+// launch bounds of 8 CTAs per SM (32 warps, at most 64 registers, no
+// spills).  8x8 and 32x32 ask for the same 32 warps per SM (32 and 2 CTAs)
+// and keep the window; at 8x8 shared memory holds 17 one-warp CTAs per SM.
+// 32x32's masks are 16-bit (12,800 bytes).
 // gsv_tile_raster_fwd_occupancy reports the registers, spills, shared
 // memory and CTAs per SM as built.  B2 adds two coalesced 128-byte
 // checkpoint stores per warp and window and one int per tile.
@@ -110,19 +122,35 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPixels = kTile * kTile;
 constexpr int kPix = 2;                   // pixels per thread, one column
-constexpr int kThreads = kPixels / kPix;  // 128
-constexpr int kWarps = kThreads / 32;     // one band of pixel rows each
-constexpr int kBandRows = kTile / kWarps;
 constexpr int kChunk = 256;               // rows per window
 constexpr int kAlign = 128;               // window alignment
 constexpr int kAttrs = 11;                // table rows 0..10 (cx .. ry)
-constexpr int kMinCtas = 32 / kWarps;     // 32 warps per SM
 constexpr unsigned kFull = 0xffffffffu;
+
+// The geometry of a TILE x TILE tile.
+template <int TILE>
+struct Geo {
+  static constexpr int kTile = TILE;
+  static constexpr int kPixels = kTile * kTile;
+  static constexpr int kThreads = kPixels / kPix;  // 32, 128, 512
+  static constexpr int kWarps = kThreads / 32;     // one band of rows each
+  static constexpr int kBandRows = kTile / kWarps;  // 8, 4, 2 rows
+  static constexpr int kMinCtas = 32 / kWarps;     // 32 warps per SM
+  // staging passes over a window's kChunk rows (a thread stages rows tid,
+  // tid + kThreads, ...; at 32x32 half the threads stage none)
+  static constexpr int kStage = (kChunk + kThreads - 1) / kThreads;
+  // one cull bit per band (warp)
+  using Mask = typename std::conditional<(kWarps <= 8), unsigned char,
+                                         unsigned short>::type;
+  static_assert(kWarps * 32 * kPix == kPixels && kBandRows * kWarps == kTile,
+                "a warp's pixels must be whole tile rows");
+  static_assert(kWarps <= 16, "16 bands at most");
+};
 
 // table row indices (ops/binning.py column map)
 constexpr int kCx = 0, kCy = 1, kA = 2, kB = 3, kC = 4;
@@ -130,9 +158,10 @@ constexpr int kR = 5, kG = 6, kBch = 7, kOpacity = 8, kRx = 9, kRy = 10;
 
 enum Mode { kGauss = 0, kBillboard = 1, kFlatBall = 2, kGaussBall = 3 };
 
+template <int TILE>
 struct Smem {
-  float4 rows[kChunk * 3];      // row j: records 3j (shape) .. 3j + 2
-  unsigned char mask[kChunk];   // bands each row's rect reaches
+  float4 rows[kChunk * 3];                 // row j: records 3j (shape) ..
+  typename Geo<TILE>::Mask mask[kChunk];   // bands each row's rect reaches
 };
 
 struct Params {
@@ -158,16 +187,19 @@ struct Colour {
   }
 };
 
-// Pixel i (0 .. 255, row-major in the tile) of the thread (warp, lane):
-// warp w holds the band of tile rows kBandRows w .., lane l column l % 16.
+// Pixel i (row-major in the tile) of the thread (warp, lane): warp w holds
+// the band of tile rows kBandRows w .., lane l column l % TILE.
 __device__ __forceinline__ int pixel_of(int warp, int lane, int i) {
   return warp * 32 * kPix + i * 32 + lane;
 }
 
 // Bands (bit w: the pixels of warp w) that a row's 3-sigma rect reaches,
 // by the kernel's own rect test at the pixel centres.
+template <int TILE>
 __device__ __forceinline__ unsigned band_mask(float cx, float cy, float rx,
                                               float ry, float tx, float ty) {
+  constexpr int kTile = TILE, kWarps = Geo<TILE>::kWarps;
+  constexpr int kBandRows = Geo<TILE>::kBandRows;
   bool x_hit = false;
 #pragma unroll
   for (int k = 0; k < kTile; ++k) {
@@ -237,8 +269,8 @@ __device__ __forceinline__ void blend_row(const float4* row, float px,
 
 // Composite the staged rows [j_lo, j_hi) that reach this warp's band, in
 // order (the loop is warp-uniform).
-template <int MODE>
-__device__ __forceinline__ void blend_rows(const Smem& sm, int j_lo,
+template <int TILE, int MODE>
+__device__ __forceinline__ void blend_rows(const Smem<TILE>& sm, int j_lo,
                                            int j_hi, int warp, int lane,
                                            float px, const float (&py)[kPix],
                                            const Params& prm, float (&T)[kPix],
@@ -257,8 +289,9 @@ __device__ __forceinline__ void blend_rows(const Smem& sm, int j_lo,
 
 // TRAIN = false is kernel B1, TRAIN = true kernel B2 (nproc and ckpt are
 // written only then); SEEDED adds B4's entering transmittance t_init.
-template <int MODE, bool TRAIN, bool SEEDED>
-__global__ void __launch_bounds__(kThreads, kMinCtas) tile_raster_fwd_kernel(
+template <int TILE, int MODE, bool TRAIN, bool SEEDED>
+__global__ void __launch_bounds__(Geo<TILE>::kThreads, Geo<TILE>::kMinCtas)
+    tile_raster_fwd_kernel(
     const float* __restrict__ table, int64_t dpad,
     const int* __restrict__ starts, const int* __restrict__ counts,
     int row_offset, int tiles_x, int row_stride, float alpha_clamp,
@@ -266,7 +299,10 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) tile_raster_fwd_kernel(
     const float* __restrict__ t_init, float* __restrict__ out_rgb,
     float* __restrict__ out_trans, int* __restrict__ out_nproc,
     float* __restrict__ ckpt) {
-  __shared__ Smem sm;
+  using G = Geo<TILE>;
+  constexpr int kTile = G::kTile, kPixels = G::kPixels;
+  static_assert(!TRAIN || TILE == 16, "the checkpoint layout is 16x16's");
+  __shared__ Smem<TILE> sm;
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -309,8 +345,11 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) tile_raster_fwd_kernel(
     if (!__syncthreads_or(live)) break;
     const int w0 = base + ci * kChunk;
 #pragma unroll
-    for (int h = 0; h < kChunk / kThreads; ++h) {
-      const int j = tid + h * kThreads;
+    for (int h = 0; h < G::kStage; ++h) {
+      const int j = tid + h * G::kThreads;
+      if constexpr (G::kThreads > kChunk) {
+        if (j >= kChunk) break;
+      }
       const int col = w0 + j;
       unsigned m = 0;
       if (col >= start && col < end) {
@@ -322,23 +361,23 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) tile_raster_fwd_kernel(
         sm.rows[j * 3 + 0] = make_float4(v[kCx], v[kCy], v[kA], v[kB]);
         sm.rows[j * 3 + 1] = make_float4(v[kC], v[kOpacity], v[kRx], v[kRy]);
         sm.rows[j * 3 + 2] = make_float4(v[kR], v[kG], v[kBch], 0.0f);
-        m = band_mask(v[kCx], v[kCy], v[kRx], v[kRy], tx, ty);
+        m = band_mask<TILE>(v[kCx], v[kCy], v[kRx], v[kRy], tx, ty);
       }
-      sm.mask[j] = static_cast<unsigned char>(m);
+      sm.mask[j] = static_cast<typename G::Mask>(m);
     }
     __syncthreads();
     const int lo = max(start - w0, 0);
     const int hi = min(end - w0, kChunk);
     if (!TRAIN) {
-      blend_rows<MODE>(sm, lo, hi, warp, lane, px, py, prm, T, acc);
+      blend_rows<TILE, MODE>(sm, lo, hi, warp, lane, px, py, prm, T, acc);
     } else {
       // the window's two 128-row blocks; each block's exiting T is the
       // next block's entering checkpoint, written only where that block
       // holds live rows of this tile (see the header on write races)
       const int mid = min(max(lo, kAlign), hi);
-      blend_rows<MODE>(sm, lo, mid, warp, lane, px, py, prm, T, acc);
+      blend_rows<TILE, MODE>(sm, lo, mid, warp, lane, px, py, prm, T, acc);
       if (w0 + kAlign < end) put_ckpt(w0 + kAlign);
-      blend_rows<MODE>(sm, mid, hi, warp, lane, px, py, prm, T, acc);
+      blend_rows<TILE, MODE>(sm, mid, hi, warp, lane, px, py, prm, T, acc);
       if (w0 + kChunk < end) put_ckpt(w0 + kChunk);
     }
   }
@@ -354,31 +393,45 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) tile_raster_fwd_kernel(
   if (TRAIN && tid == 0) out_nproc[t] = ci;
 }
 
-// Call f with the kernel instantiation of this mode.
-template <bool TRAIN, bool SEEDED, typename F>
+// Call f(kernel, threads) with the kernel instantiation of this mode.
+template <int TILE, bool TRAIN, bool SEEDED, typename F>
 int by_mode(int mode, F&& f) {
+  constexpr int n = Geo<TILE>::kThreads;
   switch (mode) {
-    case kGauss: return f(tile_raster_fwd_kernel<kGauss, TRAIN, SEEDED>);
+    case kGauss:
+      return f(tile_raster_fwd_kernel<TILE, kGauss, TRAIN, SEEDED>, n);
     case kBillboard:
-      return f(tile_raster_fwd_kernel<kBillboard, TRAIN, SEEDED>);
-    case kFlatBall: return f(tile_raster_fwd_kernel<kFlatBall, TRAIN, SEEDED>);
+      return f(tile_raster_fwd_kernel<TILE, kBillboard, TRAIN, SEEDED>, n);
+    case kFlatBall:
+      return f(tile_raster_fwd_kernel<TILE, kFlatBall, TRAIN, SEEDED>, n);
     case kGaussBall:
-      return f(tile_raster_fwd_kernel<kGaussBall, TRAIN, SEEDED>);
+      return f(tile_raster_fwd_kernel<TILE, kGaussBall, TRAIN, SEEDED>, n);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ... and of this tile size: 8, 16 or 32 for inference, 16 for training.
+template <bool TRAIN, bool SEEDED, typename F>
+int by_tile(int tile, int mode, F&& f) {
+  if (tile == 16) return by_mode<16, TRAIN, SEEDED>(mode, f);
+  if constexpr (!TRAIN) {
+    if (tile == 8) return by_mode<8, TRAIN, SEEDED>(mode, f);
+    if (tile == 32) return by_mode<32, TRAIN, SEEDED>(mode, f);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool TRAIN, bool SEEDED>
 int launch(const float* table, long long dpad, const int* starts,
            const int* counts, int num_tiles, int row_offset, int tiles_x,
-           int row_stride, int mode, float alpha_clamp, float alpha_min,
-           float ball_threshold, float early_stop, const float* t_init,
-           float* out_rgb, float* out_trans, int* out_nproc, float* ckpt,
-           void* stream) {
+           int row_stride, int tile, int mode, float alpha_clamp,
+           float alpha_min, float ball_threshold, float early_stop,
+           const float* t_init, float* out_rgb, float* out_trans,
+           int* out_nproc, float* ckpt, void* stream) {
   if (num_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return by_mode<TRAIN, SEEDED>(mode, [&](auto kernel) {
-    kernel<<<num_tiles, kThreads, 0, s>>>(
+  return by_tile<TRAIN, SEEDED>(tile, mode, [&](auto kernel, int threads) {
+    kernel<<<num_tiles, threads, 0, s>>>(
         table, dpad, starts, counts, row_offset, tiles_x, row_stride,
         alpha_clamp, alpha_min, ball_threshold, early_stop, t_init, out_rgb,
         out_trans, out_nproc, ckpt);
@@ -390,11 +443,12 @@ int launch(const float* table, long long dpad, const int* starts,
 
 extern "C" int gsv_tile_raster_fwd(
     const float* table, long long dpad, const int* starts, const int* counts,
-    int num_tiles, int row_offset, int tiles_x, int row_stride, int mode,
+    int num_tiles, int row_offset, int tiles_x, int row_stride, int tile,
+    int mode,
     float alpha_clamp, float alpha_min, float ball_threshold,
     float early_stop, float* out_rgb, float* out_trans, void* stream) {
   return launch<false, false>(table, dpad, starts, counts, num_tiles,
-                              row_offset, tiles_x, row_stride, mode,
+                              row_offset, tiles_x, row_stride, tile, mode,
                               alpha_clamp, alpha_min, ball_threshold,
                               early_stop, nullptr, out_rgb, out_trans,
                               nullptr, nullptr, stream);
@@ -402,12 +456,13 @@ extern "C" int gsv_tile_raster_fwd(
 
 extern "C" int gsv_tile_raster_fwd_train(
     const float* table, long long dpad, const int* starts, const int* counts,
-    int num_tiles, int row_offset, int tiles_x, int row_stride, int mode,
+    int num_tiles, int row_offset, int tiles_x, int row_stride, int tile,
+    int mode,
     float alpha_clamp, float alpha_min, float ball_threshold,
     float early_stop, float* out_rgb, float* out_trans, int* out_nproc,
     float* ckpt, void* stream) {
   return launch<true, false>(table, dpad, starts, counts, num_tiles,
-                             row_offset, tiles_x, row_stride, mode,
+                             row_offset, tiles_x, row_stride, tile, mode,
                              alpha_clamp, alpha_min, ball_threshold,
                              early_stop, nullptr, out_rgb, out_trans,
                              out_nproc, ckpt, stream);
@@ -415,12 +470,13 @@ extern "C" int gsv_tile_raster_fwd_train(
 
 extern "C" int gsv_tile_raster_fwd_seeded(
     const float* table, long long dpad, const int* starts, const int* counts,
-    int num_tiles, int row_offset, int tiles_x, int row_stride, int mode,
+    int num_tiles, int row_offset, int tiles_x, int row_stride, int tile,
+    int mode,
     float alpha_clamp, float alpha_min, float ball_threshold,
     float early_stop, const float* t_init, float* out_rgb, float* out_trans,
     void* stream) {
   return launch<false, true>(table, dpad, starts, counts, num_tiles,
-                             row_offset, tiles_x, row_stride, mode,
+                             row_offset, tiles_x, row_stride, tile, mode,
                              alpha_clamp, alpha_min, ball_threshold,
                              early_stop, t_init, out_rgb, out_trans, nullptr,
                              nullptr, stream);
@@ -428,12 +484,13 @@ extern "C" int gsv_tile_raster_fwd_seeded(
 
 extern "C" int gsv_tile_raster_fwd_seeded_train(
     const float* table, long long dpad, const int* starts, const int* counts,
-    int num_tiles, int row_offset, int tiles_x, int row_stride, int mode,
+    int num_tiles, int row_offset, int tiles_x, int row_stride, int tile,
+    int mode,
     float alpha_clamp, float alpha_min, float ball_threshold,
     float early_stop, const float* t_init, float* out_rgb, float* out_trans,
     int* out_nproc, float* ckpt, void* stream) {
   return launch<true, true>(table, dpad, starts, counts, num_tiles,
-                            row_offset, tiles_x, row_stride, mode,
+                            row_offset, tiles_x, row_stride, tile, mode,
                             alpha_clamp, alpha_min, ball_threshold,
                             early_stop, t_init, out_rgb, out_trans, out_nproc,
                             ckpt, stream);
@@ -442,16 +499,17 @@ extern "C" int gsv_tile_raster_fwd_seeded_train(
 // Resources of one instantiation as built: registers per thread, local
 // (spill) bytes per thread, shared memory per CTA, and the CTAs one SM
 // holds at once.
-extern "C" int gsv_tile_raster_fwd_occupancy(int mode, int train, int seeded,
-                                             int* regs, int* local_bytes,
+extern "C" int gsv_tile_raster_fwd_occupancy(int tile, int mode, int train,
+                                             int seeded, int* regs,
+                                             int* local_bytes,
                                              int* smem_bytes,
                                              int* ctas_per_sm) {
-  auto query = [&](auto kernel) {
+  auto query = [&](auto kernel, int threads) {
     cudaFuncAttributes attr;
     cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
     if (e == cudaSuccess) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel,
-                                                        kThreads, 0);
+                                                        threads, 0);
     }
     if (e != cudaSuccess) return static_cast<int>(e);
     *regs = attr.numRegs;
@@ -460,11 +518,11 @@ extern "C" int gsv_tile_raster_fwd_occupancy(int mode, int train, int seeded,
     return 0;
   };
   if (train) {
-    return seeded ? by_mode<true, true>(mode, query)
-                  : by_mode<true, false>(mode, query);
+    return seeded ? by_tile<true, true>(tile, mode, query)
+                  : by_tile<true, false>(tile, mode, query);
   }
-  return seeded ? by_mode<false, true>(mode, query)
-                : by_mode<false, false>(mode, query);
+  return seeded ? by_tile<false, true>(tile, mode, query)
+                : by_tile<false, false>(tile, mode, query);
 }
 
 extern "C" const char* gsv_cuda_error_string(int code) {

@@ -61,3 +61,19 @@ def load_train_state(ckpt_dir: str, step: int, device="cpu"):
                        weights_only=True)
     scene = GaussianData(*(state["scene"][f] for f in _FIELDS))
     return scene, state["optimizer"], state["step"]
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    """Highest checkpoint step in a directory (resume helper): the step of
+    each ``train_state_<step>.pt`` this module writes, and of the JAX
+    package's ``scene_<step>.npz`` files and ``<step>`` directories."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = []
+    for name in os.listdir(ckpt_dir):
+        base = name.split(".")[0]
+        for prefix in ("train_state_", "scene_"):
+            base = base.removeprefix(prefix)
+        if base.isdigit():
+            steps.append(int(base))
+    return max(steps) if steps else None

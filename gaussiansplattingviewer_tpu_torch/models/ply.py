@@ -8,8 +8,11 @@ transposed to per-coefficient RGB, ``scale_0..2``, ``rot_0..3``) and the
 same activations at load (L2-normalized quaternions, exp(scale),
 sigmoid(opacity)), computed in numpy so a load gives bit-identical arrays.
 
-``load_ply`` reads with numpy only: the JAX package's C++ fast path
-(``native/gsv_native.cpp``) is not bound by the port yet.
+``load_ply`` reads the standard binary float layout with the port's
+native library (``csrc/gsv_native.cpp`` through ``native/``) and
+anything else, or everything when that library is not available, with
+numpy.  Both paths apply the activations with the same numpy code, so they
+give the same bits.
 """
 
 from __future__ import annotations
@@ -118,15 +121,87 @@ def _inverse_activations(scale, opacity, rot):
     return raw_scale, raw_opacity, rot
 
 
-def load_ply(path: str | os.PathLike, max_sh_degree: int = 3):
-    """Load an INRIA 3DGS checkpoint PLY with numpy.
+def _load_ply_native(path, max_sh_degree: int = 3):
+    """Single pass of the native reader (csrc/gsv_native.cpp): the file's
+    columns, the SH transposed to per-coefficient RGB, then the numpy
+    activations.  None when the library or the file's layout is not
+    supported (the caller falls back to numpy)."""
+    import ctypes
+
+    from gaussiansplattingviewer_tpu_torch import native
+
+    lib = native.get_lib()
+    if lib is None:
+        return None
+    info = native.GsvPlyInfo()
+    max_props = 256
+    names_buf = ctypes.create_string_buffer(64 * max_props)
+    if lib.gsv_ply_inspect(str(path).encode(), ctypes.byref(info), names_buf,
+                           max_props) != 0:
+        return None
+    names = [names_buf.raw[64 * i:64 * (i + 1)].split(b"\0")[0].decode()
+             for i in range(info.n_props)]
+    col = {n: i for i, n in enumerate(names)}
+    try:
+        xyz_idx = [col["x"], col["y"], col["z"]]
+        dc_idx = [col[f"f_dc_{i}"] for i in range(3)]
+        rest_idx = [col[n] for n in _numeric_suffix_sorted(names, "f_rest_")]
+        scale_idx = [col[n] for n in _numeric_suffix_sorted(names, "scale_")]
+        rot_idx = [col[n] for n in _numeric_suffix_sorted(names, "rot")]
+        op_idx = col["opacity"]
+    except KeyError:
+        return None
+    if len(rest_idx) != info.sh_rest or len(scale_idx) != 3 \
+            or len(rot_idx) != 4:
+        return None
+    if rest_idx:
+        # full bands of a degree the caller takes, else numpy raises
+        degree = int(round((len(rest_idx) // 3 + 1) ** 0.5)) - 1
+        if len(rest_idx) != 3 * ((degree + 1) ** 2 - 1) \
+                or degree > max_sh_degree:
+            return None
+
+    n = int(info.n_vertices)
+    xyz = np.empty((n, 3), np.float32)
+    rot_raw = np.empty((n, 4), np.float32)
+    scale_raw = np.empty((n, 3), np.float32)
+    opacity_raw = np.empty((n, 1), np.float32)
+    sh = np.empty((n, 3 + info.sh_rest), np.float32)
+
+    def i32(a):
+        return (ctypes.c_int32 * max(len(a), 1))(*a)
+
+    def fptr(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+    if lib.gsv_ply_load(
+            str(path).encode(), info.header_bytes, n, info.n_props,
+            i32(xyz_idx), i32(dc_idx), i32(rest_idx), info.sh_rest,
+            i32(scale_idx), i32(rot_idx), op_idx, fptr(xyz), fptr(rot_raw),
+            fptr(scale_raw), fptr(opacity_raw), fptr(sh)) != 0:
+        return None
+    scale, opacity, rot = _activations(scale_raw, opacity_raw, rot_raw)
+    bbox = np.stack([xyz.min(axis=0), xyz.max(axis=0)])
+    return GaussianData.from_numpy(xyz, rot, scale, opacity, sh), bbox, \
+        xyz.mean(axis=0)
+
+
+def load_ply(path: str | os.PathLike, max_sh_degree: int = 3,
+             use_native: bool = True):
+    """Load an INRIA 3DGS checkpoint PLY.
 
     Returns ``(GaussianData on the CPU, bbox(2,3), center(3,))`` like the
     reference (util_gau.py:63-125).  SH layout is per-coefficient
     interleaved RGB: ``[dc.rgb, rest_0.rgb, ..., rest_14.rgb]`` — the
     transpose at util_gau.py:99-100 applied to the channel-major on-disk
-    layout.
+    layout.  ``use_native`` reads the standard binary float layout with the
+    native library where it is available; the result is the same bits as
+    the numpy reader's.
     """
+    if use_native:
+        out = _load_ply_native(path, max_sh_degree)
+        if out is not None:
+            return out
     v = read_ply_vertices(path)
     names = list(v.keys())
     n = v["x"].shape[0]

@@ -92,7 +92,7 @@ def tile_raster_bwd(table, starts, counts, nproc, ckpt, row_offset, g_rgb,
     if local_rows is None:
         local_rows = cfg.tiles_y
     num_tiles = local_rows * cfg.tiles_x
-    check_inputs(table, starts, counts, cfg, num_tiles)
+    check_inputs(table, starts, counts, cfg, num_tiles, train=True)
     _check_residuals(table, nproc, ckpt, g_rgb, g_trans, out_trans,
                      num_tiles, cfg.tile_size ** 2)
     if table.device.type == "cpu":
@@ -182,7 +182,7 @@ def tile_raster_bwd_fused(table, starts, counts, nproc, goff, ckpt,
     if local_rows is None:
         local_rows = cfg.tiles_y
     num_tiles = local_rows * cfg.tiles_x
-    check_inputs(table, starts, counts, cfg, num_tiles)
+    check_inputs(table, starts, counts, cfg, num_tiles, train=True)
     _check_residuals(table, nproc, ckpt, g_rgb, g_trans, out_trans,
                      num_tiles, cfg.tile_size ** 2, goff=goff,
                      suffix_init=suffix_init, t_entry=t_entry)

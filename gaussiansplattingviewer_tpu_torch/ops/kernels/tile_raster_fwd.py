@@ -21,10 +21,13 @@ which the backward kernels (``tile_raster_bwd.py``) share;
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``, same signature and semantics) for CPU
 tensors.  The plain versions are the CPU executors and the references the
-kernels are held against on the card.  The kernels take 16x16 tiles (the
-256 pixels in the shapes below) and raise for CUDA tensors at another
-``tile_size``; the plain versions take any, with tile_size ** 2 pixels a
-tile.
+kernels are held against on the card.  Tiles hold P = tile_size ** 2
+pixels.  On the card B1 and the inference B4 take tile_size 8, 16 or 32
+(``INFERENCE_TILES``), as the TPU kernel does; B2, B4 with ``train`` and
+the backward (B3, B5) take 16 only, which is the JAX package's own limit:
+its train kernel lays the transmittance checkpoint out for 256 pixels
+(``ops/pallas/tile_raster_fwd.py:334``).  CUDA tensors at another size
+raise; the plain versions take any.
 """
 
 from __future__ import annotations
@@ -47,13 +50,15 @@ MODE_CODE = {
 PLAIN_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 26}
 # ckpt rows: pixel p's checkpoint lives in row p // SCAN_BLOCK
 SCAN_BLOCK = binning.SEGMENT_ALIGN
-# the kernels take 16x16 tiles (256 pixels, one pixel column pair per
-# thread); the plain versions take any tile_size
-KERNEL_TILE = 16
+# tile sizes of the CUDA kernels: the inference forward (B1, B4) any of
+# INFERENCE_TILES, the training kernels (B2, B4 train, B3, B5) TRAIN_TILE;
+# the plain versions take any tile_size
+INFERENCE_TILES = (8, 16, 32)
+TRAIN_TILE = 16
 # a warp's footprint: 32 lanes x 2 pixels; in a 16x16 tile, band w is tile
-# rows 4w .. 4w+3, i.e. pixels 64w .. 64w+63
+# rows 4w .. 4w+3, i.e. pixels 64w .. 64w+63 (band_rows gives other sizes)
 BAND_PIXELS = 64
-BANDS = KERNEL_TILE * KERNEL_TILE // BAND_PIXELS
+BANDS = TRAIN_TILE * TRAIN_TILE // BAND_PIXELS
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -84,12 +89,30 @@ def ckpt_rows(pixels: int) -> int:
     return -(-pixels // SCAN_BLOCK)
 
 
-def check_inputs(table, starts, counts, cfg, num_tiles):
-    if table.device.type == "cuda" and cfg.tile_size != KERNEL_TILE:
+def check_tile_size(cfg, train: bool) -> None:
+    """Raise unless the CUDA kernels take ``cfg.tile_size``: the training
+    kernels (``train``) 16, the inference forward any of
+    INFERENCE_TILES."""
+    ts = cfg.tile_size
+    if train and ts != TRAIN_TILE:
         raise ValueError(
-            f"the CUDA blend kernels take tile_size {KERNEL_TILE}, got "
-            f"{cfg.tile_size} (the plain versions, for CPU tensors, take "
-            f"any tile size)")
+            f"the CUDA training kernels (B2, B3, B5 and B4 with train=True) "
+            f"take tile_size {TRAIN_TILE}, got {ts}: the JAX train kernel's "
+            f"checkpoint layout is 256 pixels (gaussiansplattingviewer_tpu/"
+            f"ops/pallas/tile_raster_fwd.py:334); the plain versions, for "
+            f"CPU tensors, take any tile size")
+    if ts not in INFERENCE_TILES:
+        raise ValueError(
+            f"the CUDA blend kernels take tile_size {INFERENCE_TILES} "
+            f"(inference) or {TRAIN_TILE} (training), got {ts} (the plain "
+            f"versions, for CPU tensors, take any tile size)")
+
+
+def check_inputs(table, starts, counts, cfg, num_tiles, train=False):
+    """Validate a kernel's table and segments; for CUDA tensors also the
+    tile size (``train``: the training kernels' 16)."""
+    if table.device.type == "cuda":
+        check_tile_size(cfg, train)
     if table.dtype != torch.float32 or table.dim() != 2 \
             or table.shape[0] != binning.TABLE_WIDTH:
         raise ValueError(
@@ -132,19 +155,21 @@ def _fwd_cuda(symbol, table, starts, counts, row_offset, cfg: RenderConfig,
     """Launch one entry point of ``csrc/tile_raster_fwd.cu``: rgb, trans
     and, with ``train``, ckpt and nproc."""
     dev = table.device
-    rgb = torch.empty((num_tiles, 256, 3), dtype=torch.float32, device=dev)
-    trans = torch.empty((num_tiles, 256), dtype=torch.float32, device=dev)
+    pixels = cfg.tile_size ** 2
+    rgb = torch.empty((num_tiles, pixels, 3), dtype=torch.float32,
+                      device=dev)
+    trans = torch.empty((num_tiles, pixels), dtype=torch.float32, device=dev)
     outs = [rgb, trans]
     if train:
         nproc = torch.empty((num_tiles,), dtype=torch.int32, device=dev)
-        ckpt = torch.zeros((256 // SCAN_BLOCK, table.shape[1]),
+        ckpt = torch.zeros((ckpt_rows(pixels), table.shape[1]),
                            dtype=torch.float32, device=dev)
         outs += [ckpt, nproc]
     if num_tiles == 0:
         return tuple(outs)
     lib = build.load("tile_raster_fwd")
     fn = getattr(lib, symbol)
-    fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I,
+    fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _I,
                    _F, _F, _F, _F] + [_P] * (
                        2 + (t_init is not None) + 2 * train + 1)
     fn.restype = _I
@@ -155,7 +180,8 @@ def _fwd_cuda(symbol, table, starts, counts, row_offset, cfg: RenderConfig,
         rc = fn(
             table.data_ptr(), table.shape[1], starts.data_ptr(),
             counts.data_ptr(), num_tiles, int(row_offset), cfg.tiles_x,
-            row_stride, MODE_CODE.get(cfg.mode, 0), cfg.alpha_clamp,
+            row_stride, cfg.tile_size, MODE_CODE.get(cfg.mode, 0),
+            cfg.alpha_clamp,
             cfg.alpha_min, cfg.ball_threshold, cfg.early_stop_transmittance,
             *ptrs, stream_of(dev),
         )
@@ -164,17 +190,18 @@ def _fwd_cuda(symbol, table, starts, counts, row_offset, cfg: RenderConfig,
 
 
 def kernel_occupancy(mode: RenderMode, train: bool = False,
-                     seeded: bool = False) -> dict:
+                     seeded: bool = False, tile_size: int = TRAIN_TILE
+                     ) -> dict:
     """Resources of the B1 (``train`` False), B2 (``train``) or B4
-    (``seeded``, either variant) instantiation for ``mode`` as built:
-    registers and spilled bytes per thread, shared memory per CTA, and
-    CTAs one SM holds at once.  Needs the card."""
+    (``seeded``, either variant) instantiation for ``mode`` and
+    ``tile_size`` as built: registers and spilled bytes per thread, shared
+    memory per CTA, and CTAs one SM holds at once.  Needs the card."""
     lib = build.load("tile_raster_fwd")
     fn = lib.gsv_tile_raster_fwd_occupancy
-    fn.argtypes = [_I, _I, _I] + [ctypes.POINTER(_I)] * 4
+    fn.argtypes = [_I, _I, _I, _I] + [ctypes.POINTER(_I)] * 4
     fn.restype = _I
     vals = [_I() for _ in range(4)]
-    rc = fn(MODE_CODE.get(mode, 0), int(train), int(seeded),
+    rc = fn(tile_size, MODE_CODE.get(mode, 0), int(train), int(seeded),
             *(ctypes.byref(v) for v in vals))
     build.check(lib, rc, "gsv_tile_raster_fwd_occupancy")
     return dict(zip(("registers", "local_bytes", "smem_bytes",
@@ -185,7 +212,7 @@ def tile_raster_fwd(table, starts, counts, row_offset, cfg: RenderConfig,
                     local_rows: int | None = None, row_stride: int = 1):
     """Kernel B1.  Blend every tile of the row set: attribute-major
     (16, Dpad) f32 table, starts (T+1,) and counts (T,) int32 -> rgb
-    (T, 256, 3) and final transmittance (T, 256), both f32.
+    (T, P, 3) and final transmittance (T, P), both f32.
 
     CUDA tensors launch the kernel (one launch, counted in
     ``tile_raster_fwd.launches``); CPU tensors run the plain version.
@@ -224,7 +251,7 @@ def tile_raster_fwd_train(table, starts, counts, row_offset,
     if local_rows is None:
         local_rows = cfg.tiles_y
     num_tiles = local_rows * cfg.tiles_x
-    check_inputs(table, starts, counts, cfg, num_tiles)
+    check_inputs(table, starts, counts, cfg, num_tiles, train=True)
     if table.device.type == "cpu":
         return tile_raster_fwd_train_plain(table, starts, counts, row_offset,
                                            cfg, local_rows, row_stride)
@@ -243,7 +270,7 @@ def tile_raster_fwd_seeded(table, starts, counts, t_init, row_offset,
                            row_stride: int = 1, train: bool = False):
     """Kernel B4, the fused path's residual pass: B1 (``train=False``) or
     B2 (``train=True``, adding ckpt and nproc) with each pixel's
-    transmittance starting from ``t_init`` (T, 256) f32 instead of 1.0;
+    transmittance starting from ``t_init`` (T, P) f32 instead of 1.0;
     rgb accumulates from zero.  The tile's first block keeps no
     checkpoint: its entering transmittance is ``t_init``.
 
@@ -253,7 +280,7 @@ def tile_raster_fwd_seeded(table, starts, counts, t_init, row_offset,
     if local_rows is None:
         local_rows = cfg.tiles_y
     num_tiles = local_rows * cfg.tiles_x
-    check_inputs(table, starts, counts, cfg, num_tiles)
+    check_inputs(table, starts, counts, cfg, num_tiles, train=train)
     _check_t_init(t_init, table, num_tiles, cfg.tile_size ** 2)
     if table.device.type == "cpu":
         return tile_raster_fwd_seeded_plain(table, starts, counts, t_init,

@@ -37,6 +37,25 @@ def quat_to_rotmat(q):
     return stack(rows, -2)
 
 
+def rotmat_to_quat(R: np.ndarray) -> np.ndarray:
+    """3x3 rotation matrix -> quaternion (w,x,y,z), w >= 0.
+
+    Eigen-decomposition method, as the reference's rotmat2qvec (main.py:
+    115-126), which unpacks R.flat row by row, i.e. Ryx = R[0,1]."""
+    Rxx, Ryx, Rzx, Rxy, Ryy, Rzy, Rxz, Ryz, Rzz = np.asarray(R).flat
+    K = np.array([
+        [Rxx - Ryy - Rzz, 0, 0, 0],
+        [Ryx + Rxy, Ryy - Rxx - Rzz, 0, 0],
+        [Rzx + Rxz, Rzy + Ryz, Rzz - Rxx - Ryy, 0],
+        [Ryz - Rzy, Rzx - Rxz, Rxy - Ryx, Rxx + Ryy + Rzz],
+    ]) / 3.0
+    eigvals, eigvecs = np.linalg.eigh(K)
+    q = eigvecs[[3, 0, 1, 2], np.argmax(eigvals)]
+    if q[0] < 0:
+        q = -q
+    return q
+
+
 def normalize(v, axis=-1, eps: float = 0.0):
     n = np.linalg.norm(v, axis=axis, keepdims=True)
     if eps:

@@ -58,13 +58,67 @@ NEW_MODULES = {
         "initialize_distributed", "make_mesh", "make_host_mesh",
         "replicate_scene", "render_sharded", "shard_scene_splats",
         "make_sharded_render_fn", "make_sharded_train_step"),
+    # the apps, host utilities, eval and native I/O: the JAX modules' names
+    "gaussiansplattingviewer_tpu_torch.apps.viewer": (
+        "MODE_NAMES", "find_ply", "load_scene", "build_parser", "main"),
+    "gaussiansplattingviewer_tpu_torch.apps.dataset_gen": (
+        "build_parser", "triplet_paths", "generate", "main"),
+    "gaussiansplattingviewer_tpu_torch.apps.render_all": (
+        "build_parser", "main"),
+    "gaussiansplattingviewer_tpu_torch.apps.serve": (
+        "ViewerState", "build_state", "make_handler", "main"),
+    "gaussiansplattingviewer_tpu_torch.utils.profiling": (
+        "trace", "hard_sync", "FrameTimer", "render_stats"),
+    "gaussiansplattingviewer_tpu_torch.utils.camera": (
+        "Camera", "sphere_orbit_pose", "sphere_orbit_path"),
+    "gaussiansplattingviewer_tpu_torch.utils.transforms": (
+        "rotmat_to_quat", "quat_to_rotmat", "look_at"),
+    "gaussiansplattingviewer_tpu_torch.utils.image_io": (
+        "write_rgb8", "write_disparity16", "read_image", "ensure_dirs"),
+    "gaussiansplattingviewer_tpu_torch.models.checkpoint": (
+        "latest_step", "save_npz", "load_npz"),
+    "gaussiansplattingviewer_tpu_torch.native": (
+        "GsvPlyInfo", "get_lib", "status"),
+    "gaussiansplattingviewer_tpu_torch.eval": (
+        "psnr", "ssim", "mse", "lpips_available", "lpips_distance",
+        "blur_effect", "remove_statistical_outliers", "disparity_to_depth",
+        "disparity_to_pointcloud", "sharpen_disparity"),
+    "gaussiansplattingviewer_tpu_torch.eval.metrics": (
+        "mse", "psnr", "ssim", "compare_image_dirs"),
+    "gaussiansplattingviewer_tpu_torch.eval.blur": (
+        "blur_effect", "blur_scores_for_dir"),
+    "gaussiansplattingviewer_tpu_torch.eval.outliers": (
+        "remove_statistical_outliers", "outlier_score",
+        "disparity_outlier_metric"),
+    "gaussiansplattingviewer_tpu_torch.eval.reproject": (
+        "disparity16_to_pixels", "disparity_to_depth",
+        "disparity_to_pointcloud", "save_pointcloud_ply"),
+    "gaussiansplattingviewer_tpu_torch.eval.sharpen": (
+        "flying_pixel_mask", "sharpen_disparity"),
+    "gaussiansplattingviewer_tpu_torch.eval.disp_scale": (
+        "bilinear_sample", "match_keypoints_sift",
+        "disparity_scale_from_matches", "calibrate_disparity_scale"),
+    "gaussiansplattingviewer_tpu_torch.eval.packaging": (
+        "check_scene_files", "zip_scene", "zip_all_scenes", "unzip_all"),
+    "gaussiansplattingviewer_tpu_torch.eval.plots": (
+        "moving_average", "plot_blur_scores", "plot_chunked_median",
+        "plot_outlier_scores"),
+    "gaussiansplattingviewer_tpu_torch.eval.viz": (
+        "normalize_depth_for_display", "colormap_disparity",
+        "stereo_shift_check", "radial_undistort", "normalize_blur_csv",
+        "plot_camera_path"),
+    "gaussiansplattingviewer_tpu_torch.eval.lpips_metric": (
+        "lpips_available", "lpips_distance"),
+    "gaussiansplattingviewer_tpu_torch.eval.compare": (
+        "compare_backends", "main"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(NEW_MODULES))
 def test_new_modules_import_without_a_card(name):
-    """Importing the compaction and parallel modules needs no card and no
-    process group, and gives the JAX modules' names."""
+    """Importing the compaction, parallel, app, utility, eval and native
+    modules needs no card and no process group, and gives the JAX modules'
+    names."""
     import importlib
 
     mod = importlib.import_module(name)
@@ -72,3 +126,21 @@ def test_new_modules_import_without_a_card(name):
     assert not missing, missing
     path = pathlib.Path(mod.__file__)
     assert not [n for n in _imports(path) if _forbidden(n)]
+
+
+def test_importing_the_port_pulls_in_no_optional_dependency():
+    """In a fresh interpreter, importing every module of the port loads
+    neither JAX nor the JAX package, nor scipy, OpenCV or matplotlib (eval
+    imports those on first use)."""
+    import subprocess
+    import sys
+
+    mods = sorted(NEW_MODULES) + ["gaussiansplattingviewer_tpu_torch.apps.train"]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'gaussiansplattingviewer_tpu', 'scipy', "
+              "'cv2', 'matplotlib')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -224,7 +224,8 @@ def _seeded_args(dev, cfg, opacity=None, band=None):
                              device=dev)
     num_tiles = counts.shape[0]
     gen = torch.Generator(device="cpu").manual_seed(5)
-    t_init = 0.2 + 0.8 * torch.rand((num_tiles, 256), generator=gen)
+    t_init = 0.2 + 0.8 * torch.rand((num_tiles, cfg.tile_size ** 2),
+                                    generator=gen)
     t_init[::7] = 5e-5
     return (table, starts, counts, t_init.to(dev), row_offset, cfg, *rest)
 
@@ -476,27 +477,83 @@ def test_tile_raster_bwd_resources(fused):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ts,width,height", [(8, 160, 96), (32, 150, 90)])
+@pytest.mark.parametrize("mode,opacity", CASES)
+def test_inference_kernels_take_tile_8_and_32(ts, width, height, mode,
+                                              opacity):
+    """B1 and B4 (train=False) at tile sizes 8 and 32, as the TPU kernel
+    takes them: rgb at 1e-5 * max(1, |plain|), T equal; one launch each;
+    no spills."""
+    dev = _card()
+    cfg = RenderConfig(width=width, height=height, mode=mode, tile_size=ts)
+    args = _train_args(dev, cfg, opacity)
+    before = b1.tile_raster_fwd.launches
+    rgb, trans = b1.tile_raster_fwd(*args)
+    torch.cuda.synchronize()
+    assert b1.tile_raster_fwd.launches == before + 1
+    assert tuple(rgb.shape) == (cfg.num_tiles, ts * ts, 3)
+    prgb, ptrans = b1.tile_raster_fwd_plain(*args)
+    assert float(prgb.max()) > 0.1
+    assert _close(rgb, prgb) and _close(trans, ptrans)
+    seeded = _seeded_args(dev, cfg, opacity)
+    before = b1.tile_raster_fwd_seeded.launches
+    out = b1.tile_raster_fwd_seeded(*seeded)
+    torch.cuda.synchronize()
+    assert b1.tile_raster_fwd_seeded.launches == before + 1
+    plain = b1.tile_raster_fwd_seeded_plain(*seeded)
+    assert _close(out[0], plain[0])
+    assert torch.equal(out[1], plain[1])
+    for seeded_flag in (False, True):
+        occ = b1.kernel_occupancy(mode, seeded=seeded_flag, tile_size=ts)
+        print(ts, mode, seeded_flag, occ)
+        assert occ["local_bytes"] == 0, occ
+        assert occ["smem_bytes"] == (12544 if ts == 8 else 12800), occ
+
+
+@pytest.mark.gpu
 def test_cuda_kernels_refuse_other_tile_sizes():
-    """The kernels are built for 16x16 tiles: CUDA tensors at tile_size 8
-    raise, and nothing runs (no plain fallback, no launch)."""
+    """The training kernels (B2, B4 train, B3, B5) take 16x16 tiles only,
+    the JAX train kernel's limit: CUDA tensors at tile_size 8 raise and
+    nothing runs (no plain fallback, no launch), also through a render that
+    needs gradients.  Tile 24 raises for the inference kernels too."""
     dev = _card()
     cfg = RenderConfig(width=64, height=48, tile_size=8)
     table = torch.zeros((16, 600), device=dev)
     starts = torch.zeros(cfg.num_tiles + 1, dtype=torch.int32, device=dev)
     counts = torch.zeros(cfg.num_tiles, dtype=torch.int32, device=dev)
-    before = (b1.tile_raster_fwd.launches, b1.tile_raster_fwd_train.launches)
-    for kernel in (b1.tile_raster_fwd, b1.tile_raster_fwd_train):
-        with pytest.raises(ValueError, match="tile_size 16"):
-            kernel(table, starts, counts, 0, cfg)
-    assert before == (b1.tile_raster_fwd.launches,
-                      b1.tile_raster_fwd_train.launches)
+    per_tile = torch.ones((cfg.num_tiles, 64), device=dev)
+    kernels = (b1.tile_raster_fwd, b1.tile_raster_fwd_train,
+               b1.tile_raster_fwd_seeded, b3.tile_raster_bwd,
+               b3.tile_raster_bwd_fused)
+    before = [k.launches for k in kernels]
+    with pytest.raises(ValueError, match="tile_size 16"):
+        b1.tile_raster_fwd_train(table, starts, counts, 0, cfg)
+    with pytest.raises(ValueError, match="tile_size 16"):
+        b1.tile_raster_fwd_seeded(table, starts, counts, per_tile, 0, cfg,
+                                  train=True)
+    nproc = torch.zeros_like(counts)
+    ckpt = torch.zeros((1, 600), device=dev)
+    g_rgb = torch.zeros((cfg.num_tiles, 64, 3), device=dev)
+    with pytest.raises(ValueError, match="tile_size 16"):
+        b3.tile_raster_bwd(table, starts, counts, nproc, ckpt, 0, g_rgb,
+                           per_tile, per_tile, cfg)
+    with pytest.raises(ValueError, match="tile_size 16"):
+        b3.tile_raster_bwd_fused(table, starts, counts, nproc, nproc, ckpt, 0,
+                                 g_rgb, per_tile, per_tile, per_tile,
+                                 per_tile, 1024, cfg)
+    with pytest.raises(ValueError, match="tile_size"):
+        b1.tile_raster_fwd(table, starts[:5], counts[:4], 0,
+                           cfg.with_(tile_size=24, width=48, height=48))
+    assert before == [k.launches for k in kernels]
     scene = random_scene(500, sh_degree=0, seed=3, extent=2.0,
-                         mean_scale=0.05)
+                         mean_scale=0.05).to(dev)
+    scene.xyz.requires_grad_(True)
     view = tf.look_at([0, 0, 5.0], [0, 0, 0], [0, -1, 0])
     cam = Camera(h=cfg.height, w=cfg.width)
     with pytest.raises(ValueError, match="tile_size 16"):
         render(scene, view, cam.get_project_matrix(),
                np.array([0, 0, 5.0], np.float32), cfg, device=dev)
+    assert before == [k.launches for k in kernels]
 
 
 def _classic_grads(dev, cfg, scene, view, proj, eye):
