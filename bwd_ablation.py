@@ -6,7 +6,8 @@ gaussiansplattingviewer_tpu_torch/csrc/tile_raster_bwd.cu) on one CUDA card.
 
 Builds the source as it is ("base") and variants of it, each with one step
 of the design switched off by a text patch, plus any other source of the
-same C interface named with --source (an earlier version of the file, say),
+same C interface named with --source (an earlier version of the file
+that takes the tile size argument, say),
 and times each with CUDA events
 on two real inputs: B3 on the 1M-splat training step's table and
 cotangents (chip_smoke.py phase 5) and B5 on the garden step's pass-1
@@ -32,6 +33,11 @@ import torch
 
 import chip_smoke as cs
 
+# variants whose geometry holds at 16x16 only (launch bounds of 0 CTAs at
+# 32x32) leave out B3's other tile sizes
+_ONLY_16 = [
+    ("    if (tile == 8) return by_mode<8, FUSED>(mode, f);\n", ""),
+    ("    if (tile == 32) return by_mode<32, FUSED>(mode, f);\n", "")]
 # name: (text patches, what is held: "bits" equal to base and within the
 # plain version's tolerance, "plain" that tolerance only, None nothing)
 VARIANTS = {
@@ -39,13 +45,14 @@ VARIANTS = {
     "IEEE division": (
         [("div_unit(S + gto, one_m_safe)", "(S + gto) / one_m_safe")],
         "bits"),
-    "no warp cull": ([("  return m;\n}", "  return 0xFu;\n}")], "bits"),
+    "no warp cull": ([("  return m;\n}", "  return (1u << kWarps) - 1;\n}")],
+                     "bits"),
     "no hot-row skip": (
         [("hot |= __any_sync(kFull, lit) ? 1u << jj : 0u;",
           "hot |= 1u << jj;")], "bits"),
     "3 CTAs per SM": (
-        [("constexpr int kMinCtas = 4;", "constexpr int kMinCtas = 3;")],
-        "bits"),
+        [("constexpr int kWarpsPerSm = 16;", "constexpr int kWarpsPerSm = 12;"),
+         *_ONLY_16], "bits"),
     "no reduction of full batches (timing only)": (
         [("reduce_rows<NG, 4>(acc, lane);\n            put(3);\n          }"
           " else if (jr[2] >= 0)", "put(3);\n          } else if (jr[2] >= 0)")],

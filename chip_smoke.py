@@ -8,8 +8,9 @@ Phases, each fatal on failure:
   1. card identity (nvidia-smi name and power limit);
   2. build every CUDA kernel from csrc/ (one nvcc per source, started
      together), print nvcc's -Xptxas -v report and, per kernel (B1, B2,
-     B4 in both variants, B3, B5) and mode, its registers, spills, shared
-     memory per CTA and CTAs per SM as built;
+     B4 in both variants, B3, B5; B1, B2, B4 inference and B3 also at
+     tiles 8 and 32) and mode, its registers, spills, shared memory per CTA
+     and CTAs per SM as built;
   3. every kernel (B1 inference forward, B2 train forward, B3 blend
      backward, B4 seeded forward in both variants, B5 compact backward)
      against its plain PyTorch version on the 10k-splat golden scene at
@@ -17,11 +18,13 @@ Phases, each fatal on failure:
      shard (B4/B5 on the fused path's own pass-1 and pass-2 inputs,
      prefix_rows 32); the rendered images against the stored goldens
      (tests/goldens);
- 3b. tile sizes 8 and 32, which the inference forward also takes: B1 and
-     B4 (train=False, on the fused serving path's pass-2 inputs) against
+ 3b. tile sizes 8 and 32, which the classic kernels also take: B1, B2,
+     B3 (also against its own second launch, bit for bit) and B4
+     (train=False, on the fused serving path's pass-2 inputs) against
      their plain versions on the golden scene in all 7 modes, the opaque
-     copy and the shard; CUDA tensors at tile 8 through B2, B4 train, B3
-     and B5 raise and launch nothing;
+     copy and the shard; CUDA tensors at tile 8 through the fused training
+     kernels (B4 train, B5), and at tile 24 through every kernel, raise and
+     launch nothing;
   4. the serving path at full size: the 1M-splat SH-3 bench scene at
      1920x1080 through render() under no_grad, with CUDA-event stage times
      and B1 held against its plain version on the same table;
@@ -33,9 +36,11 @@ Phases, each fatal on failure:
      sum(img^2), SGD at lr 1e-12): CUDA-event stage times inside real
      steps, B2 and B3 timed alone and held against their plain versions on
      a step's own table (B3 also against its own second launch, bit for
-     bit), the device's busy share (torch.profiler), 5 timed
-     steps through render() + backward(), their launch counts and
-     gradients;
+     bit), two backwards' gradients bit for bit, the device's busy share
+     (torch.profiler), 5 timed steps through render() + backward(), their
+     launch counts and gradients;
+ 5b. the same training step at tile sizes 8 and 32 (classic path, as the
+     JAX package's XLA executor trains there), without the profiler;
   6. the trainer through its CLI (apps.train.main, 3 self-distill steps at
      1920x1080 from the 1M scene written as a PLY scene dir);
   7. the serve app on 127.0.0.1 answering /info and three /render requests;
@@ -217,7 +222,7 @@ class Checks:
                 worst = max(worst, e / scale if scale > 0 else float("inf"))
         log(f"[check] {tag}: max|diff| {err:.3e}, worst column "
             f"|diff|/max|plain| {worst:.3e} (tol 1.0e-05)")
-        self.err[kernel] = max(self.err[kernel], err)
+        self.err[kernel] = max(self.err.get(kernel, 0.0), err)
         if not worst <= 1e-5:
             raise AssertionError(f"{tag}: kernel disagrees with plain")
 
@@ -230,8 +235,8 @@ def seeded_cotangents(trans, seed):
 
 
 def kernels_vs_plain(chk, tag, bs, cfg, row_offset=0, band=()):
-    """B1, B2 and B3 against their plain versions on one binned table;
-    returns B2's nproc."""
+    """B1, B2 and B3 against their plain versions on one binned table, at
+    cfg.tile_size; returns B2's nproc."""
     from gaussiansplattingviewer_tpu_torch.ops.kernels import (
         tile_raster_bwd as b3,
     )
@@ -239,27 +244,30 @@ def kernels_vs_plain(chk, tag, bs, cfg, row_offset=0, band=()):
         tile_raster_fwd as b1,
     )
 
+    sfx = "" if cfg.tile_size == 16 else f" t{cfg.tile_size}"
     args = (bs.table, bs.tile_starts, bs.tile_counts, row_offset, cfg, *band)
     rgb, trans = b1.tile_raster_fwd(*args)
     torch.cuda.synchronize()
     prgb, ptrans = b1.tile_raster_fwd_plain(*args)
-    chk.close("B1", f"{tag} B1 rgb", rgb, prgb)
-    chk.close("B1", f"{tag} B1 T", trans, ptrans)
+    chk.close(f"B1{sfx}", f"{tag} B1 rgb", rgb, prgb)
+    chk.close(f"B1{sfx}", f"{tag} B1 T", trans, ptrans)
 
     rgb, trans, ckpt, nproc = b1.tile_raster_fwd_train(*args)
     torch.cuda.synchronize()
     prgb, ptrans, pckpt, pnproc = b1.tile_raster_fwd_train_plain(*args)
-    chk.close("B2", f"{tag} B2 rgb", rgb, prgb)
-    chk.close("B2", f"{tag} B2 T", trans, ptrans)
-    chk.equal("B2", f"{tag} B2 nproc", nproc, pnproc)
-    chk.equal("B2", f"{tag} B2 ckpt", ckpt, pckpt)
+    chk.close(f"B2{sfx}", f"{tag} B2 rgb", rgb, prgb)
+    chk.close(f"B2{sfx}", f"{tag} B2 T", trans, ptrans)
+    chk.equal(f"B2{sfx}", f"{tag} B2 nproc", nproc, pnproc)
+    chk.equal(f"B2{sfx}", f"{tag} B2 ckpt", ckpt, pckpt)
 
     g_rgb, g_trans = seeded_cotangents(trans, seed=7)
     bwd = (bs.table, bs.tile_starts, bs.tile_counts, nproc, ckpt, row_offset,
            g_rgb, g_trans, trans, cfg, *band)
     g = b3.tile_raster_bwd(*bwd)
     torch.cuda.synchronize()
-    chk.columns("B3", f"{tag} B3 g_table", g, b3.tile_raster_bwd_plain(*bwd))
+    chk.columns(f"B3{sfx}", f"{tag} B3 g_table", g,
+                b3.tile_raster_bwd_plain(*bwd))
+    chk.equal(f"B3{sfx}", f"{tag} B3 repeat", g, b3.tile_raster_bwd(*bwd))
     if not float(g.abs().max()) > 0:
         raise AssertionError(f"{tag}: B3 gave a zero gradient")
     return nproc
@@ -550,6 +558,169 @@ def image_cotangents(rgb, trans, cfg):
 
 def grads_of(params):
     return [p.grad.detach().clone() for p in params]
+
+
+def trained_at_tile(chk, zero_counts, counts, no_launch, scene, view, proj,
+                    eye, cfg, smi, profile=False):
+    """The 1M training step (bench.py's: sum(img^2), SGD) at
+    cfg.tile_size on the classic path: CUDA-event stage times inside real
+    steps, B2 and B3 alone on a step's own table and cotangents against
+    their plain versions (B3 also against its own second launch, bit for
+    bit), their bounds from the fragments the step needs, the gradient of
+    two backwards on the same parameters bit for bit, with ``profile`` the
+    device's busy share (torch.profiler), then TRAIN_STEPS timed steps
+    through render() + backward() with their launch counts (B2 and B3
+    once per step) and gradients.  Returns its numbers."""
+    from gaussiansplattingviewer_tpu_torch.models import GaussianData
+    from gaussiansplattingviewer_tpu_torch.ops import binning
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_bwd as b3,
+    )
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_fwd as b1,
+    )
+    from gaussiansplattingviewer_tpu_torch.ops.projection import project
+    from gaussiansplattingviewer_tpu_torch.ops.render import render
+
+    ts = cfg.tile_size
+    sfx = "" if ts == 16 else f" t{ts}"
+    tag = f"[train{sfx}]"
+    sc = GaussianData(*(getattr(scene, f).detach().clone()
+                        .requires_grad_(True) for f in FIELDS))
+    params = [getattr(sc, f) for f in FIELDS]
+    out = {}
+
+    def train_step():
+        return sgd_step(sc, params, view, proj, eye, cfg)[0]
+
+    for _ in range(2):  # warm-up
+        train_step()
+    torch.cuda.synchronize()
+
+    # stage times inside real steps (see classic_staged_step)
+    stage_ms, stage_sum = staged_means(
+        lambda: classic_staged_step(sc, params, view, proj, eye, cfg),
+        CLASSIC_STAGES)
+    log(f"{tag} stages in a step (CUDA events, mean of 3): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in stage_ms.items())
+        + f"; sum {stage_sum:.3f} ms")
+
+    # the kernels alone on one step's own table and cotangents
+    splats = project(sc, view, proj, eye, cfg)
+    bs = binning.bin_splats(splats, cfg)
+    targs = (bs.table.detach(), bs.tile_starts, bs.tile_counts, 0, cfg)
+    with torch.no_grad():
+        b1.tile_raster_fwd_train(*targs)  # warm-up
+        out["ms_b2"], (rgb, trans, ckpt, nproc) = cuda_ms(
+            lambda: b1.tile_raster_fwd_train(*targs), 10)
+    g_rgb, g_trans = image_cotangents(rgb, trans, cfg)
+    bwd = (targs[0], bs.tile_starts, bs.tile_counts, nproc, ckpt, 0,
+           g_rgb, g_trans, trans, cfg)
+    b3.tile_raster_bwd(*bwd)  # warm-up
+    out["ms_b3"], g_table = cuda_ms(lambda: b3.tile_raster_bwd(*bwd), 5)
+    chk.equal(f"B3{sfx}", f"1M 1080p tile {ts} train step B3 repeat",
+              g_table, b3.tile_raster_bwd(*bwd))
+    log(f"{tag} kernels alone (CUDA events): B2 {out['ms_b2']:.3f} ms, B3 "
+        f"{out['ms_b3']:.3f} ms")
+
+    out["ms_b2_plain"], (prgb, ptrans, pckpt, pnproc) = host_ms(
+        lambda: b1.tile_raster_fwd_train_plain(*targs))
+    key = f"1M 1080p tile {ts} train step B2"
+    chk.close(f"B2{sfx}", f"{key} rgb", rgb, prgb)
+    chk.close(f"B2{sfx}", f"{key} T", trans, ptrans)
+    chk.equal(f"B2{sfx}", f"{key} nproc", nproc, pnproc)
+    chk.equal(f"B2{sfx}", f"{key} ckpt", ckpt, pckpt)
+    del prgb, ptrans, pckpt, pnproc
+    out["ms_b3_plain"], pg = host_ms(lambda: b3.tile_raster_bwd_plain(*bwd))
+    chk.columns(f"B3{sfx}", f"1M 1080p tile {ts} train step B3 g_table",
+                g_table, pg)
+    log(f"{tag} plain versions (host clock): B2 {out['ms_b2_plain']:.3f} "
+        f"ms, B3 {out['ms_b3_plain']:.3f} ms")
+
+    rows, frags = needed(f"B2, B3 tile {ts}", bs.table, bs.tile_starts,
+                         bs.tile_counts, nproc, cfg)
+    ntile, pixels, dpad = cfg.num_tiles, ts * ts, bs.table.shape[1]
+    seg_bytes = (2 * ntile + 1) * 4
+    ckpt_bytes = b1.ckpt_rows(pixels) * dpad * 4
+    out["bound_b2"] = bound(f"B2 tile {ts}", frags * FLOPS_PER_FRAGMENT,
+                            rows * BLEND_ATTR_BYTES + ntile * pixels * 4 * 4
+                            + seg_bytes + ntile * 4 + ckpt_bytes)
+    out["bound_b3"] = bound(f"B3 tile {ts}", frags * FLOPS_PER_FRAGMENT_B3,
+                            rows * BLEND_ATTR_BYTES + ntile * pixels * 5 * 4
+                            + seg_bytes + ntile * 4 + ckpt_bytes
+                            + 16 * dpad * 4)
+    dups = int(bs.tile_counts.sum())
+    del splats, bs, g_table, pg, rgb, trans, ckpt, g_rgb, g_trans, bwd
+    del targs
+
+    # the classic backward has no atomics: two backwards on the same
+    # parameters give the same bits
+    def grads_once():
+        for p in params:
+            p.grad = None
+        img = render(sc, view, proj, eye, cfg)
+        (img * img).sum().backward()
+        return grads_of(params)
+
+    first = grads_once()
+    same = all(torch.equal(a, b) for a, b in zip(first, grads_once()))
+    log(f"{tag} gradients of two backwards equal bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"tile {ts}: the classic gradient differs "
+                             f"from run to run")
+    del first
+
+    if profile:
+        # device busy share: kernel time per step (torch.profiler over two
+        # steps) against the unprofiled step time below
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                train_step()
+            torch.cuda.synchronize()
+        kernel_rows = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernel_rows.sort(key=lambda e: -e.self_device_time_total)
+        device_ms = sum(e.self_device_time_total for e in kernel_rows) / 2e3
+        for e in kernel_rows[:8]:
+            log(f"[profile] {e.self_device_time_total / 2e3:8.3f} ms/step "
+                f"{e.count // 2:5d} launches  {e.key[:90]}")
+
+    # the training path: counts at 0, TRAIN_STEPS steps, read
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        ms, loss = host_ms(train_step)
+        step_ms.append(ms)
+    out["counts"] = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms_step = float(np.mean(step_ms))
+    log(f"{tag} 1M SH3 {FULL_W}x{FULL_H} tile {ts} ({ntile} tiles, {dups} "
+        f"rows listed, {rows} blended) fwd+bwd+update steps "
+        f"{[f'{m:.3f}' for m in step_ms]} ms -> {ms_step:.3f} ms/step, "
+        f"{FULL_W * FULL_H / ms_step / 1e3:.3f} Mpix/s, loss "
+        f"{float(loss.detach()):.6g}, peak memory {peak:.3f} GiB, "
+        f"launches {out['counts']}; {smi}")
+    if profile:
+        log(f"{tag} device kernel time {device_ms:.3f} ms/step (profiler) "
+            f"-> busy {device_ms / ms_step:.3f}, idle "
+            f"{1 - device_ms / ms_step:.3f} of the unprofiled step")
+    want = {**no_launch, "B2": TRAIN_STEPS, "B3": TRAIN_STEPS}
+    if out["counts"] != want:
+        raise AssertionError(f"tile {ts}: {TRAIN_STEPS} steps launched "
+                             f"{out['counts']}")
+    for name, p in zip(FIELDS, params):
+        g = p.grad
+        ok = g is not None and bool(torch.isfinite(g).all()) \
+            and float(g.abs().max()) > 0
+        log(f"{tag} grad {name}: finite and nonzero {ok}, max|g| "
+            f"{float(g.abs().max()) if g is not None else 0.0:.4g}")
+        if not ok:
+            raise AssertionError(f"tile {ts}: the {name} gradient is zero "
+                                 f"or not finite")
+    return out
 
 
 def garden_cell(chk, zero_counts, counts, no_launch):
@@ -1095,25 +1266,20 @@ def fused_serving(cfg, prefix_rows):
                      residual_budget_rows=FUSED_RESIDUAL_ROWS)
 
 
-def inference_vs_plain(chk, tag, splats, bs, cfg, row_offset=0,
-                       local_rows=None, row_stride=1):
-    """B1 on a binned table and B4 (train=False) on the fused serving
-    path's own pass-2 inputs against their plain versions, at
-    cfg.tile_size; returns the rows pass 2 listed."""
+def tile_kernels_vs_plain(chk, tag, splats, bs, cfg, row_offset=0,
+                          local_rows=None, row_stride=1):
+    """B1, B2 and B3 on a binned table (kernels_vs_plain) and B4
+    (train=False) on the fused serving path's own pass-2 inputs against
+    their plain versions, at cfg.tile_size; returns the rows pass 2
+    listed."""
     from gaussiansplattingviewer_tpu_torch.ops import binning, fused
     from gaussiansplattingviewer_tpu_torch.ops.kernels import (
         tile_raster_fwd as b1,
     )
 
     ts = cfg.tile_size
-    args = (bs.table, bs.tile_starts, bs.tile_counts, row_offset, cfg,
-            local_rows, row_stride)
-    rgb, trans = b1.tile_raster_fwd(*args)
-    torch.cuda.synchronize()
-    prgb, ptrans = b1.tile_raster_fwd_plain(*args)
-    chk.close(f"B1 t{ts}", f"{tag} B1 rgb", rgb, prgb)
-    chk.close(f"B1 t{ts}", f"{tag} B1 T", trans, ptrans)
-
+    kernels_vs_plain(chk, tag, bs, cfg, row_offset,
+                     () if local_rows is None else (local_rows, row_stride))
     if local_rows is None:
         local_rows = cfg.tiles_y
     cf = fused_serving(cfg, GOLDEN_PREFIX[ts])
@@ -1133,8 +1299,10 @@ def inference_vs_plain(chk, tag, splats, bs, cfg, row_offset=0,
 
 
 def training_tiles_refused(counts):
-    """CUDA tensors at tile 8 through B2, B4 train, B3 and B5 raise (the
-    JAX train kernel's 256-pixel checkpoint layout) and nothing launches."""
+    """CUDA tensors at tile 8 through the fused training kernels (B4
+    train, B5) raise (JAX's fused path runs only through Pallas, whose
+    train kernel lays its checkpoint out for 256 pixels), and at tile 24
+    through every kernel; nothing launches."""
     from gaussiansplattingviewer_tpu_torch.config import RenderConfig
     from gaussiansplattingviewer_tpu_torch.ops.kernels import (
         tile_raster_bwd as b3,
@@ -1143,33 +1311,41 @@ def training_tiles_refused(counts):
         tile_raster_fwd as b1,
     )
 
-    cfg = RenderConfig(width=64, height=48, tile_size=8)
-    nt = cfg.num_tiles
     z = dict(device=DEVICE)
     table = torch.zeros((16, 600), **z)
-    starts = torch.zeros(nt + 1, dtype=torch.int32, **z)
-    cnt = torch.zeros(nt, dtype=torch.int32, **z)
-    per_tile = torch.ones((nt, 64), **z)
-    ckpt = torch.zeros((1, 600), **z)
-    g_rgb = torch.zeros((nt, 64, 3), **z)
-    calls = {
-        "B2": lambda: b1.tile_raster_fwd_train(table, starts, cnt, 0, cfg),
-        "B4 train": lambda: b1.tile_raster_fwd_seeded(
-            table, starts, cnt, per_tile, 0, cfg, train=True),
-        "B3": lambda: b3.tile_raster_bwd(table, starts, cnt, cnt, ckpt, 0,
-                                         g_rgb, per_tile, per_tile, cfg),
-        "B5": lambda: b3.tile_raster_bwd_fused(
-            table, starts, cnt, cnt, cnt, ckpt, 0, g_rgb, per_tile, per_tile,
-            per_tile, per_tile, 1024, cfg)}
     before = counts()
-    for name, call in calls.items():
-        try:
-            call()
-        except ValueError as e:
-            log(f"[tiles] {name} at tile 8 on the card refused: "
-                f"{str(e)[:110]}...")
-        else:
-            raise AssertionError(f"{name} ran at tile 8 on the card")
+    for ts, width, height in ((8, 64, 48), (24, 48, 48)):
+        cfg = RenderConfig(width=width, height=height, tile_size=ts)
+        nt, p = cfg.num_tiles, ts * ts
+        starts = torch.zeros(nt + 1, dtype=torch.int32, **z)
+        cnt = torch.zeros(nt, dtype=torch.int32, **z)
+        per_tile = torch.ones((nt, p), **z)
+        ckpt = torch.zeros((b1.ckpt_rows(p), 600), **z)
+        g_rgb = torch.zeros((nt, p, 3), **z)
+        calls = {
+            "B4 train": lambda: b1.tile_raster_fwd_seeded(
+                table, starts, cnt, per_tile, 0, cfg, train=True),
+            "B5": lambda: b3.tile_raster_bwd_fused(
+                table, starts, cnt, cnt, cnt, ckpt, 0, g_rgb, per_tile,
+                per_tile, per_tile, per_tile, 1024, cfg)}
+        if ts == 24:
+            calls.update({
+                "B1": lambda: b1.tile_raster_fwd(table, starts, cnt, 0, cfg),
+                "B2": lambda: b1.tile_raster_fwd_train(table, starts, cnt, 0,
+                                                       cfg),
+                "B4": lambda: b1.tile_raster_fwd_seeded(
+                    table, starts, cnt, per_tile, 0, cfg),
+                "B3": lambda: b3.tile_raster_bwd(
+                    table, starts, cnt, cnt, ckpt, 0, g_rgb, per_tile,
+                    per_tile, cfg)})
+        for name, call in calls.items():
+            try:
+                call()
+            except ValueError as e:
+                log(f"[tiles] {name} at tile {ts} on the card refused: "
+                    f"{str(e)[:160]}...")
+            else:
+                raise AssertionError(f"{name} ran at tile {ts} on the card")
     if counts() != before:
         raise AssertionError(f"a refused kernel launched: {counts()}")
 
@@ -1652,12 +1828,10 @@ def main() -> int:
         RenderMode,
     )
     from gaussiansplattingviewer_tpu_torch.models import (
-        GaussianData,
         random_scene,
         save_ply,
     )
     from gaussiansplattingviewer_tpu_torch.ops import binning
-    from gaussiansplattingviewer_tpu_torch.ops.blend import blend_tiles
     from gaussiansplattingviewer_tpu_torch.ops.kernels import build
     from gaussiansplattingviewer_tpu_torch.ops.kernels import (
         tile_raster_bwd as b3,
@@ -1666,9 +1840,6 @@ def main() -> int:
         tile_raster_fwd as b1,
     )
     from gaussiansplattingviewer_tpu_torch.ops.projection import project
-    from gaussiansplattingviewer_tpu_torch.ops.raster_tiles import (
-        _tiles_to_image,
-    )
     from gaussiansplattingviewer_tpu_torch.ops.render import (
         render,
         render_with_aux,
@@ -1727,11 +1898,16 @@ def main() -> int:
                                                   seeded=True),
         "B3": lambda m: b3.kernel_occupancy(m, False),
         "B5": lambda m: b3.kernel_occupancy(m, True),
-        **{f"{k} tile {ts}": (lambda m, ts=ts, seeded=seeded:
-                              b1.kernel_occupancy(m, seeded=seeded,
+        **{f"{k} tile {ts}": (lambda m, ts=ts, train=train, seeded=seeded:
+                              b1.kernel_occupancy(m, train=train,
+                                                  seeded=seeded,
                                                   tile_size=ts))
-           for ts in TILE_SIZES for k, seeded in (("B1", False),
-                                                   ("B4", True))}}
+           for ts in TILE_SIZES for k, train, seeded in (
+               ("B1", False, False), ("B2", True, False),
+               ("B4", False, True))},
+        **{f"B3 tile {ts}": (lambda m, ts=ts:
+                             b3.kernel_occupancy(m, False, ts))
+           for ts in TILE_SIZES}}
     for key, query in occupancy.items():
         for mode in (RenderMode.SH3, RenderMode.BILLBOARD,
                      RenderMode.FLAT_BALL, RenderMode.GAUSSIAN_BALL):
@@ -1800,20 +1976,22 @@ def main() -> int:
     fused_vs_plain(chk, "10k band (rows 1::2)", splats_of(scene3, cfg),
                    cfg.with_(**GOLDEN_FUSED), 1, band_rows, 2)
 
-    # ---- 3b. tile sizes 8 and 32 (B1, B4 inference) on the golden scene
+    # ---- 3b. tile sizes 8 and 32 (B1, B2, B3, B4 inference) on the golden
+    # scene
     for ts in TILE_SIZES:
         rows2 = 0
         for name in GOLDEN_MODES:
             cfg = RenderConfig(width=GOLDEN_W, height=GOLDEN_H,
                                mode=RenderMode[name], tile_size=ts)
-            rows2 += inference_vs_plain(chk, f"10k tile {ts} {name}",
-                                        splats_of(scene3, cfg),
-                                        binned(scene3, cfg), cfg)
+            rows2 += tile_kernels_vs_plain(chk, f"10k tile {ts} {name}",
+                                           splats_of(scene3, cfg),
+                                           binned(scene3, cfg), cfg)
         cfg = RenderConfig(width=GOLDEN_W, height=GOLDEN_H, tile_size=ts)
-        inference_vs_plain(chk, f"10k tile {ts} opaque",
-                           splats_of(opaque, cfg), binned(opaque, cfg), cfg)
+        tile_kernels_vs_plain(chk, f"10k tile {ts} opaque",
+                              splats_of(opaque, cfg), binned(opaque, cfg),
+                              cfg)
         band_rows = cfg.tiles_y // 2
-        inference_vs_plain(
+        tile_kernels_vs_plain(
             chk, f"10k tile {ts} band (rows 1::2)", splats_of(scene3, cfg),
             binned(scene3, cfg, row_offset=1, local_rows=band_rows,
                    row_stride=2), cfg, 1, band_rows, 2)
@@ -1914,113 +2092,15 @@ def main() -> int:
             cfg4.with_(tile_size=ts), tiles[ts].pop("img"), smi))
 
     # ---- 5. the training step at full size
-    sc = GaussianData(*(getattr(big, f).detach().clone().requires_grad_(True)
-                        for f in FIELDS))
-    params = [getattr(sc, f) for f in FIELDS]
+    trained = {16: trained_at_tile(chk, zero_counts, counts, no_launch, big,
+                                   view4, proj4, eye4, cfg4, smi,
+                                   profile=True)}
 
-    def train_step():
-        return sgd_step(sc, params, view4, proj4, eye4, cfg4)[0]
-
-    for _ in range(2):  # warm-up
-        train_step()
-    torch.cuda.synchronize()
-
-    # stage times inside real steps (see classic_staged_step)
-    stage_ms, stage_sum = staged_means(
-        lambda: classic_staged_step(sc, params, view4, proj4, eye4, cfg4),
-        CLASSIC_STAGES)
-    log("[train] stages in a step (CUDA events, mean of 3): " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in stage_ms.items())
-        + f"; sum {stage_sum:.3f} ms")
-
-    # the kernels alone on one step's own table and cotangents
-    splats = project(sc, view4, proj4, eye4, cfg4)
-    bs = binning.bin_splats(splats, cfg4)
-    targs = (bs.table.detach(), bs.tile_starts, bs.tile_counts, 0, cfg4)
-    with torch.no_grad():
-        ms_b2, (rgb, trans, ckpt, nproc) = cuda_ms(
-            lambda: b1.tile_raster_fwd_train(*targs), 10)
-    g_rgb, g_trans = image_cotangents(rgb, trans, cfg4)
-    bwd = (targs[0], bs.tile_starts, bs.tile_counts, nproc, ckpt, 0,
-           g_rgb, g_trans, trans, cfg4)
-    b3.tile_raster_bwd(*bwd)  # warm-up
-    ms_b3, g_table = cuda_ms(lambda: b3.tile_raster_bwd(*bwd), 5)
-    chk.equal("B3", "1M 1080p train step B3 repeat", g_table,
-              b3.tile_raster_bwd(*bwd))
-    log(f"[train] kernels alone (CUDA events): B2 {ms_b2:.3f} ms, B3 "
-        f"{ms_b3:.3f} ms")
-
-    ms_b2_plain, (prgb, ptrans, pckpt, pnproc) = host_ms(
-        lambda: b1.tile_raster_fwd_train_plain(*targs))
-    chk.close("B2", "1M 1080p train step B2 rgb", rgb, prgb)
-    chk.close("B2", "1M 1080p train step B2 T", trans, ptrans)
-    chk.equal("B2", "1M 1080p train step B2 nproc", nproc, pnproc)
-    chk.equal("B2", "1M 1080p train step B2 ckpt", ckpt, pckpt)
-    del prgb, ptrans, pckpt, pnproc
-    ms_b3_plain, pg = host_ms(lambda: b3.tile_raster_bwd_plain(*bwd))
-    chk.columns("B3", "1M 1080p train step B3 g_table", g_table, pg)
-    log(f"[train] plain versions (host clock): B2 {ms_b2_plain:.3f} ms, "
-        f"B3 {ms_b3_plain:.3f} ms")
-
-    rows, frags = needed("B2, B3", bs.table, bs.tile_starts, bs.tile_counts,
-                         nproc, cfg4)
-    dpad = bs.table.shape[1]
-    bound_b2 = bound("B2", frags * FLOPS_PER_FRAGMENT,
-                     rows * BLEND_ATTR_BYTES + ntile * 256 * 4 * 4
-                     + seg_bytes + ntile * 4 + 2 * dpad * 4)
-    bound_b3 = bound("B3", frags * FLOPS_PER_FRAGMENT_B3,
-                     rows * BLEND_ATTR_BYTES + ntile * 256 * 5 * 4
-                     + seg_bytes + ntile * 4 + 2 * dpad * 4
-                     + 16 * dpad * 4)
-    del splats, bs, g_table, pg, rgb, trans, ckpt, g_rgb, g_trans, bwd
-    del targs
-
-    # device busy share: kernel time per step (torch.profiler over two
-    # steps) against the unprofiled step time below
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            train_step()
-        torch.cuda.synchronize()
-    kernel_rows = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernel_rows.sort(key=lambda e: -e.self_device_time_total)
-    device_ms = sum(e.self_device_time_total for e in kernel_rows) / 2e3
-    for e in kernel_rows[:8]:
-        log(f"[profile] {e.self_device_time_total / 2e3:8.3f} ms/step "
-            f"{e.count // 2:5d} launches  {e.key[:90]}")
-
-    # the training path: counts at 0, TRAIN_STEPS steps, read
-    zero_counts()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for _ in range(TRAIN_STEPS):
-        ms, loss = host_ms(train_step)
-        step_ms.append(ms)
-    train_counts = counts()
-    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    ms_step = float(np.mean(step_ms))
-    log(f"[train] 1M SH3 {FULL_W}x{FULL_H} fwd+bwd+update steps "
-        f"{[f'{m:.3f}' for m in step_ms]} ms -> {ms_step:.3f} ms/step, "
-        f"{FULL_W * FULL_H / ms_step / 1e3:.3f} Mpix/s, loss "
-        f"{float(loss.detach()):.6g}, peak memory {train_peak:.3f} GiB, "
-        f"launches {train_counts}")
-    log(f"[train] device kernel time {device_ms:.3f} ms/step (profiler) -> "
-        f"busy {device_ms / ms_step:.3f}, idle {1 - device_ms / ms_step:.3f} "
-        f"of the unprofiled step")
-    want = {**no_launch, "B2": TRAIN_STEPS, "B3": TRAIN_STEPS}
-    if train_counts != want:
-        raise AssertionError(f"{TRAIN_STEPS} steps launched {train_counts}")
-    for name, p in zip(FIELDS, params):
-        g = p.grad
-        ok = g is not None and bool(torch.isfinite(g).all()) \
-            and float(g.abs().max()) > 0
-        log(f"[train] grad {name}: finite and nonzero {ok}, max|g| "
-            f"{float(g.abs().max()) if g is not None else 0.0:.4g}")
-        if not ok:
-            raise AssertionError(f"the {name} gradient is zero or not finite")
-    del sc, params
+    # ---- 5b. the training step at tile sizes 8 and 32 (classic)
+    for ts in TILE_SIZES:
+        trained[ts] = trained_at_tile(chk, zero_counts, counts, no_launch,
+                                      big, view4, proj4, eye4,
+                                      cfg4.with_(tile_size=ts), smi)
 
     # ---- 6. the trainer through its CLI, on the 1M scene as a scene dir
     scene_dir = work / "scene_1m"
@@ -2111,11 +2191,24 @@ def main() -> int:
                 "max_abs_err": chk.err[key], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
-    # B1 and B4 (inference) at the other tile sizes, from phase 4b
+    # B2 and B3 at a tile size, from phase 5 or 5b
+    def train_entries(ts):
+        t, sfx = trained[ts], "" if ts == 16 else f" (tile {ts})"
+        key = "" if ts == 16 else f" t{ts}"
+        return [
+            entry(f"tile_raster_fwd_train{sfx}", fwd_src,
+                  "tile_raster_fwd.py:418", f"B2{key}", t["counts"]["B2"],
+                  t["ms_b2"], t["ms_b2_plain"], t["bound_b2"]),
+            entry(f"tile_raster_bwd{sfx}", bwd_src, "tile_raster_bwd.py:614",
+                  f"B3{key}", t["counts"]["B3"], t["ms_b3"],
+                  t["ms_b3_plain"], t["bound_b3"])]
+
+    # B1 and B4 (inference) from phase 4b, B2 and B3 from 5b, at the other
+    # tile sizes
     per_tile = []
     for ts in TILE_SIZES:
         t = tiles[ts]
-        per_tile += [
+        per_tile += train_entries(ts) + [
             entry(f"tile_raster_fwd (tile {ts})", fwd_src,
                   "tile_raster_fwd.py:202", f"B1 t{ts}", t["launches"],
                   t["ms"], t["plain_ms"], t["bound"]),
@@ -2126,10 +2219,7 @@ def main() -> int:
     line = {"kernels": [
         entry("tile_raster_fwd", fwd_src, "tile_raster_fwd.py:202", "B1",
               serve_counts["B1"], ms_b1, ms_b1_plain, bound_b1),
-        entry("tile_raster_fwd_train", fwd_src, "tile_raster_fwd.py:418",
-              "B2", train_counts["B2"], ms_b2, ms_b2_plain, bound_b2),
-        entry("tile_raster_bwd", bwd_src, "tile_raster_bwd.py:614", "B3",
-              train_counts["B3"], ms_b3, ms_b3_plain, bound_b3),
+        *train_entries(16),
         entry("tile_raster_fwd_seeded", fwd_src, "tile_raster_fwd.py:437",
               "B4", g["counts"]["B4"], g["ms_b4"], g["ms_b4_plain"],
               g["bound_b4"]),

@@ -7,12 +7,13 @@
 //   gsv_tile_raster_fwd_seeded        kernel B4, the fused path's residual
 //   gsv_tile_raster_fwd_seeded_train  pass (inference and train variants).
 //
-// Tile sizes: the inference variants (B1, B4) take 8x8, 16x16 and 32x32
-// tiles, as the TPU kernel does; the training variants (B2, B4 train) take
-// 16x16 only, the TPU train kernel's limit (its checkpoint is laid out for
-// 256 pixels, ops/pallas/tile_raster_fwd.py:334), which the backward (B3,
-// B5) shares.  The text below describes the 16x16 tile; Geo<TILE> gives
-// the other sizes' geometry.
+// Tile sizes: B1, B2 and the inference B4 take 8x8, 16x16 and 32x32
+// tiles, as the JAX package's XLA executor does for training
+// (ops/blend.py); the backward B3 takes the same.  B4 train, like the
+// fused backward B5, takes 16x16 only: JAX's fused path runs only through
+// Pallas (ops/raster_tiles.py:68), whose train kernel lays its checkpoint
+// out for 256 pixels (ops/pallas/tile_raster_fwd.py:334).  The text below
+// describes the 16x16 tile; Geo<TILE> gives the other sizes' geometry.
 //
 // Replaces: gaussiansplattingviewer_tpu/ops/pallas/tile_raster_fwd.py,
 // _fwd_kernel (seeded=False) as launched by rasterize_binned_pallas_soa
@@ -39,8 +40,9 @@
 //
 // B2's residuals, in the JAX layout:
 //   nproc[t]  the windows the tile processed before its early stop;
-//   ckpt      (2, dpad): pixel p's transmittance ENTERING the 128-row block
-//             that starts at column c is ckpt[p / 128][c + p % 128].  Each
+//   ckpt      (ceil(P / 128), dpad): pixel p's transmittance ENTERING the
+//             128-row block that starts at column c is ckpt[p / 128][c +
+//             p % 128] (at 8x8, columns c + 64 .. c + 127 stay 0).  Each
 //             block writes its EXITING T at the next block's columns, so a
 //             tile never writes its own first block (entering T is 1.0).
 // Write races: on the TPU the grid runs tiles in order and a later tile's
@@ -301,7 +303,6 @@ __global__ void __launch_bounds__(Geo<TILE>::kThreads, Geo<TILE>::kMinCtas)
     float* __restrict__ ckpt) {
   using G = Geo<TILE>;
   constexpr int kTile = G::kTile, kPixels = G::kPixels;
-  static_assert(!TRAIN || TILE == 16, "the checkpoint layout is 16x16's");
   __shared__ Smem<TILE> sm;
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -410,11 +411,12 @@ int by_mode(int mode, F&& f) {
   }
 }
 
-// ... and of this tile size: 8, 16 or 32 for inference, 16 for training.
+// ... and of this tile size: 8, 16 or 32, but 16 for B4 train (the fused
+// path's).
 template <bool TRAIN, bool SEEDED, typename F>
 int by_tile(int tile, int mode, F&& f) {
   if (tile == 16) return by_mode<16, TRAIN, SEEDED>(mode, f);
-  if constexpr (!TRAIN) {
+  if constexpr (!(TRAIN && SEEDED)) {
     if (tile == 8) return by_mode<8, TRAIN, SEEDED>(mode, f);
     if (tile == 32) return by_mode<32, TRAIN, SEEDED>(mode, f);
   }

@@ -45,6 +45,7 @@ from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_bwd import (
     tile_raster_bwd_fused,
 )
 from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
+    check_tile_size,
     tile_raster_fwd,
     tile_raster_fwd_seeded,
     tile_raster_fwd_train,
@@ -306,6 +307,9 @@ def blend_fused(cfg: RenderConfig, local_rows: int, row_stride: int,
     # grad mode is off inside Function.forward, so the forward's kernels
     # are chosen here
     if torch.is_grad_enabled() and table_src.requires_grad:
+        if table_src.device.type == "cuda":
+            # B4 train and B5 take 16 only: refuse before pass 1 launches B2
+            check_tile_size(cfg, fused_train=True)
         return _BlendFused.apply(table_src, rows_sorted, starts_full, cfg,
                                  local_rows, row_stride, row_offset)
     f = _forward(cfg, local_rows, row_stride, table_src, rows_sorted,

@@ -19,7 +19,8 @@ PyTorch version (``*_plain``, same signature and semantics) for CPU
 tensors.  The plain version is the CPU
 executor and the reference the kernel is held against on the card: t_i and
 alpha are the kernel's bit for bit, and the suffix S runs in the kernel's
-order, so only the sums over a row's 256 pixels differ in order.
+order, so only the sums over a row's pixels differ in order.  On the card
+B3 takes tile_size 8, 16 or 32 and B5 16 (``check_tile_size``).
 """
 
 from __future__ import annotations
@@ -79,9 +80,9 @@ def tile_raster_bwd(table, starts, counts, nproc, ckpt, row_offset, g_rgb,
     """Kernel B3.  Gradient of the blend w.r.t. the attribute-major table.
 
     table (16, Dpad) f32, starts (T+1,) / counts (T,) int32; nproc (T,)
-    int32 and ckpt (2, Dpad) f32 are kernel B2's residuals; g_rgb
-    (T, 256, 3) and g_trans (T, 256) the cotangents of B2's outputs, and
-    out_trans (T, 256) its final transmittance.  Returns g_table (16, Dpad)
+    int32 and ckpt (ceil(P / 128), Dpad) f32 are kernel B2's residuals;
+    g_rgb (T, P, 3) and g_trans (T, P) the cotangents of B2's outputs, and
+    out_trans (T, P) its final transmittance (P = tile_size ** 2).  Returns g_table (16, Dpad)
     f32: columns cx .. opacity (0-8) of every live row of the windows each
     tile processed (rgb 5-7 only in billboard and ball modes); zero
     elsewhere.
@@ -92,7 +93,7 @@ def tile_raster_bwd(table, starts, counts, nproc, ckpt, row_offset, g_rgb,
     if local_rows is None:
         local_rows = cfg.tiles_y
     num_tiles = local_rows * cfg.tiles_x
-    check_inputs(table, starts, counts, cfg, num_tiles, train=True)
+    check_inputs(table, starts, counts, cfg, num_tiles)
     _check_residuals(table, nproc, ckpt, g_rgb, g_trans, out_trans,
                      num_tiles, cfg.tile_size ** 2)
     if table.device.type == "cpu":
@@ -132,27 +133,29 @@ def _bwd_cuda(table, starts, counts, nproc, goff, ckpt, row_offset, g_rgb,
         + ([suffix_init.data_ptr(), t_entry.data_ptr(), g_out.shape[1]]
            if fused else []) + [g_out.data_ptr(), stream_of(dev)]
     fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _P] + [_P] * fused \
-        + [_P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P] \
+        + [_P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P] \
         + [_P, _P, ctypes.c_longlong] * fused + [_P, _P]
     fn.restype = _I
     with torch.cuda.device(dev):
         rc = fn(*head, num_tiles, int(row_offset), cfg.tiles_x, row_stride,
-                MODE_CODE.get(cfg.mode, 0), cfg.alpha_clamp,
+                cfg.tile_size, MODE_CODE.get(cfg.mode, 0), cfg.alpha_clamp,
                 1.0 - cfg.alpha_clamp, cfg.alpha_min, cfg.ball_threshold,
                 *tail)
     build.check(lib, rc, f"{fn.__name__} launch")
 
 
-def kernel_occupancy(mode: RenderMode, fused: bool) -> dict:
+def kernel_occupancy(mode: RenderMode, fused: bool,
+                     tile_size: int = 16) -> dict:
     """Resources of the B3 (``fused`` False) or B5 instantiation for
-    ``mode`` as built: registers and spilled bytes per thread, shared
-    memory per CTA, and CTAs one SM holds at once.  Needs the card."""
+    ``mode`` and ``tile_size`` as built: registers and spilled bytes per
+    thread, shared memory per CTA, and CTAs one SM holds at once.  Needs
+    the card."""
     lib = build.load("tile_raster_bwd")
     fn = lib.gsv_tile_raster_bwd_occupancy
-    fn.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 4
+    fn.argtypes = [_I, _I, _I] + [ctypes.POINTER(_I)] * 4
     fn.restype = _I
     vals = [_I() for _ in range(4)]
-    rc = fn(MODE_CODE.get(mode, 0), int(fused),
+    rc = fn(tile_size, MODE_CODE.get(mode, 0), int(fused),
             *(ctypes.byref(v) for v in vals))
     build.check(lib, rc, "gsv_tile_raster_bwd_occupancy")
     return dict(zip(("registers", "local_bytes", "smem_bytes",
@@ -182,7 +185,7 @@ def tile_raster_bwd_fused(table, starts, counts, nproc, goff, ckpt,
     if local_rows is None:
         local_rows = cfg.tiles_y
     num_tiles = local_rows * cfg.tiles_x
-    check_inputs(table, starts, counts, cfg, num_tiles, train=True)
+    check_inputs(table, starts, counts, cfg, num_tiles, fused_train=True)
     _check_residuals(table, nproc, ckpt, g_rgb, g_trans, out_trans,
                      num_tiles, cfg.tile_size ** 2, goff=goff,
                      suffix_init=suffix_init, t_entry=t_entry)

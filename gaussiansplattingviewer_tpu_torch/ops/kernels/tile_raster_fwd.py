@@ -22,12 +22,15 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``, same signature and semantics) for CPU
 tensors.  The plain versions are the CPU executors and the references the
 kernels are held against on the card.  Tiles hold P = tile_size ** 2
-pixels.  On the card B1 and the inference B4 take tile_size 8, 16 or 32
-(``INFERENCE_TILES``), as the TPU kernel does; B2, B4 with ``train`` and
-the backward (B3, B5) take 16 only, which is the JAX package's own limit:
-its train kernel lays the transmittance checkpoint out for 256 pixels
-(``ops/pallas/tile_raster_fwd.py:334``).  CUDA tensors at another size
-raise; the plain versions take any.
+pixels.  On the card B1, B2, the inference B4 and the classic backward B3
+take tile_size 8, 16 or 32 (``CUDA_TILES``), as the JAX package's XLA
+executor trains at any size (``ops/blend.py``); the fused training kernels
+(B4 with ``train``, B5) take 16 only (``FUSED_TRAIN_TILE``), which is the
+JAX package's own limit: its fused path runs only through Pallas
+(``ops/raster_tiles.py:68``), whose train kernel lays the transmittance
+checkpoint out for 256 pixels (``ops/pallas/tile_raster_fwd.py:334``).
+CUDA tensors at another size raise before any launch; the plain versions
+take any.
 """
 
 from __future__ import annotations
@@ -50,15 +53,15 @@ MODE_CODE = {
 PLAIN_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 26}
 # ckpt rows: pixel p's checkpoint lives in row p // SCAN_BLOCK
 SCAN_BLOCK = binning.SEGMENT_ALIGN
-# tile sizes of the CUDA kernels: the inference forward (B1, B4) any of
-# INFERENCE_TILES, the training kernels (B2, B4 train, B3, B5) TRAIN_TILE;
+# tile sizes of the CUDA kernels: B1, B2, B3 and the inference B4 any of
+# CUDA_TILES, the fused training kernels (B4 train, B5) FUSED_TRAIN_TILE;
 # the plain versions take any tile_size
-INFERENCE_TILES = (8, 16, 32)
-TRAIN_TILE = 16
+CUDA_TILES = (8, 16, 32)
+FUSED_TRAIN_TILE = 16
 # a warp's footprint: 32 lanes x 2 pixels; in a 16x16 tile, band w is tile
 # rows 4w .. 4w+3, i.e. pixels 64w .. 64w+63 (band_rows gives other sizes)
 BAND_PIXELS = 64
-BANDS = TRAIN_TILE * TRAIN_TILE // BAND_PIXELS
+BANDS = 16 * 16 // BAND_PIXELS  # of a 16x16 tile
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -89,30 +92,31 @@ def ckpt_rows(pixels: int) -> int:
     return -(-pixels // SCAN_BLOCK)
 
 
-def check_tile_size(cfg, train: bool) -> None:
-    """Raise unless the CUDA kernels take ``cfg.tile_size``: the training
-    kernels (``train``) 16, the inference forward any of
-    INFERENCE_TILES."""
+def check_tile_size(cfg, fused_train: bool = False) -> None:
+    """Raise unless the CUDA kernels take ``cfg.tile_size``: the fused
+    training kernels (``fused_train``) 16, the others any of CUDA_TILES."""
     ts = cfg.tile_size
-    if train and ts != TRAIN_TILE:
+    if ts not in CUDA_TILES:
         raise ValueError(
-            f"the CUDA training kernels (B2, B3, B5 and B4 with train=True) "
-            f"take tile_size {TRAIN_TILE}, got {ts}: the JAX train kernel's "
-            f"checkpoint layout is 256 pixels (gaussiansplattingviewer_tpu/"
-            f"ops/pallas/tile_raster_fwd.py:334); the plain versions, for "
-            f"CPU tensors, take any tile size")
-    if ts not in INFERENCE_TILES:
+            f"the CUDA blend kernels take tile_size {CUDA_TILES}, got {ts} "
+            f"(the plain versions, for CPU tensors, take any tile size)")
+    if fused_train and ts != FUSED_TRAIN_TILE:
         raise ValueError(
-            f"the CUDA blend kernels take tile_size {INFERENCE_TILES} "
-            f"(inference) or {TRAIN_TILE} (training), got {ts} (the plain "
-            f"versions, for CPU tensors, take any tile size)")
+            f"the CUDA fused training kernels (B4 with train=True, B5) take "
+            f"tile_size {FUSED_TRAIN_TILE}, got {ts}: the JAX fused path "
+            f"runs only through Pallas (gaussiansplattingviewer_tpu/ops/"
+            f"raster_tiles.py:68), whose train kernel lays its checkpoint "
+            f"out for 256 pixels (gaussiansplattingviewer_tpu/ops/pallas/"
+            f"tile_raster_fwd.py:334); the classic path trains at "
+            f"{CUDA_TILES}, and the plain versions, for CPU tensors, take "
+            f"any tile size")
 
 
-def check_inputs(table, starts, counts, cfg, num_tiles, train=False):
+def check_inputs(table, starts, counts, cfg, num_tiles, fused_train=False):
     """Validate a kernel's table and segments; for CUDA tensors also the
-    tile size (``train``: the training kernels' 16)."""
+    tile size (``fused_train``: the fused training kernels' 16)."""
     if table.device.type == "cuda":
-        check_tile_size(cfg, train)
+        check_tile_size(cfg, fused_train)
     if table.dtype != torch.float32 or table.dim() != 2 \
             or table.shape[0] != binning.TABLE_WIDTH:
         raise ValueError(
@@ -190,8 +194,7 @@ def _fwd_cuda(symbol, table, starts, counts, row_offset, cfg: RenderConfig,
 
 
 def kernel_occupancy(mode: RenderMode, train: bool = False,
-                     seeded: bool = False, tile_size: int = TRAIN_TILE
-                     ) -> dict:
+                     seeded: bool = False, tile_size: int = 16) -> dict:
     """Resources of the B1 (``train`` False), B2 (``train``) or B4
     (``seeded``, either variant) instantiation for ``mode`` and
     ``tile_size`` as built: registers and spilled bytes per thread, shared
@@ -238,20 +241,21 @@ def tile_raster_fwd_train(table, starts, counts, row_offset,
                           cfg: RenderConfig, local_rows: int | None = None,
                           row_stride: int = 1):
     """Kernel B2, the training forward: B1's (rgb, trans) plus the
-    backward's residuals ckpt (2, Dpad) f32 and nproc (T,) int32.
+    backward's residuals ckpt (ceil(P / 128), Dpad) f32 and nproc (T,)
+    int32.
 
     nproc[t] is the number of 256-row windows tile t processed before its
     early stop.  ckpt[p // 128, c + p % 128] is pixel p's transmittance
     entering the 128-row block that starts at table column c, for every
     block except a tile's first (entering value 1.0) that holds a live row
-    of its tile; other columns stay 0.  CUDA tensors launch the kernel (one
+    of its tile; other columns stay 0 (at tile 8 also c + 64 .. c + 127).  CUDA tensors launch the kernel (one
     launch, counted in ``tile_raster_fwd_train.launches``); CPU tensors run
     the plain version, which writes the same columns with the same values.
     """
     if local_rows is None:
         local_rows = cfg.tiles_y
     num_tiles = local_rows * cfg.tiles_x
-    check_inputs(table, starts, counts, cfg, num_tiles, train=True)
+    check_inputs(table, starts, counts, cfg, num_tiles)
     if table.device.type == "cpu":
         return tile_raster_fwd_train_plain(table, starts, counts, row_offset,
                                            cfg, local_rows, row_stride)
@@ -280,7 +284,7 @@ def tile_raster_fwd_seeded(table, starts, counts, t_init, row_offset,
     if local_rows is None:
         local_rows = cfg.tiles_y
     num_tiles = local_rows * cfg.tiles_x
-    check_inputs(table, starts, counts, cfg, num_tiles, train=train)
+    check_inputs(table, starts, counts, cfg, num_tiles, fused_train=train)
     _check_t_init(t_init, table, num_tiles, cfg.tile_size ** 2)
     if table.device.type == "cpu":
         return tile_raster_fwd_seeded_plain(table, starts, counts, t_init,

@@ -181,15 +181,9 @@ def test_tile_raster_bwd_matches_plain(mode, opacity, band):
     assert torch.equal(g, b3.tile_raster_bwd(*bwd_args))
 
 
-@pytest.mark.gpu
-def test_render_gradient_on_card_matches_cpu():
-    """The training path on the card (B2, B3, the fold, projection
-    autograd) against the same gradient on the CPU.  Per field within
-    1e-4 * max|g| (measured 5e-7 on an H100): the CPU takes exp in f64
-    rounded to f32, the card expf, so an alpha_min fragment can flip, and
-    the card's index_add_ adds in another order."""
-    dev = _card()
-    cfg = RenderConfig(width=320, height=192, grad_fold_bf16=False)
+def _render_gradient_card_vs_cpu(dev, cfg):
+    """The gradient of sum(img^2) on the card and on the CPU, per field
+    within 1e-4 * max|g|."""
     scene = random_scene(3000, sh_degree=3, seed=9, extent=2.0,
                          mean_scale=0.05)
     cam = Camera(h=cfg.height, w=cfg.width)
@@ -212,6 +206,31 @@ def test_render_gradient_on_card_matches_cpu():
         err = float((g_card - g_cpu).abs().max())
         print(f"{name}: max|card - cpu| / max|g| = {err / scale:.3e}")
         assert err <= 1e-4 * scale, name
+
+
+@pytest.mark.gpu
+def test_render_gradient_on_card_matches_cpu():
+    """The training path on the card (B2, B3, the fold, projection
+    autograd) against the same gradient on the CPU.  Per field within
+    1e-4 * max|g| (measured 5e-7 on an H100): the CPU takes exp in f64
+    rounded to f32, the card expf, so an alpha_min fragment can flip, and
+    the card's index_add_ adds in another order."""
+    _render_gradient_card_vs_cpu(
+        _card(), RenderConfig(width=320, height=192, grad_fold_bf16=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [8, 32])
+def test_render_gradient_at_tile_8_and_32_on_card_matches_cpu(ts):
+    """The classic training path at tile 8 and 32 on the card (B2 and B3
+    once each) against the CPU's, as at tile 16."""
+    dev = _card()
+    before = (b1.tile_raster_fwd_train.launches, b3.tile_raster_bwd.launches)
+    _render_gradient_card_vs_cpu(
+        dev, RenderConfig(width=320, height=192, tile_size=ts,
+                          grad_fold_bf16=False))
+    assert (b1.tile_raster_fwd_train.launches,
+            b3.tile_raster_bwd.launches) == (before[0] + 1, before[1] + 1)
 
 
 def _seeded_args(dev, cfg, opacity=None, band=None):
@@ -462,18 +481,27 @@ def test_tile_raster_fwd_resources(train, seeded):
         assert occ["ctas_per_sm"] == 8, occ
 
 
+# the backward's shared memory per CTA and CTAs per SM by tile size
+# (csrc/tile_raster_bwd.cu): 16 warps per SM at 16 and 32, shared memory
+# holding 9 one-warp CTAs at 8
+BWD_SMEM = {8: 23376, 16: 55824, 32: 185920}
+BWD_CTAS = {8: 9, 16: 4, 32: 1}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("fused", [False, True])
 def test_tile_raster_bwd_resources(fused):
-    """The backward template as built: no spills, the 55,824-byte shared
-    memory layout of csrc/tile_raster_bwd.cu, and 4 CTAs per SM."""
+    """The backward template as built: no spills, the shared memory layout
+    of csrc/tile_raster_bwd.cu (55,824 bytes at 16) and its CTAs per SM
+    (4 at 16), for B3 at tile 8, 16 and 32 and B5 at 16."""
     _card()
-    for mode in (RenderMode.SH3, RenderMode.BILLBOARD):
-        occ = b3.kernel_occupancy(mode, fused)
-        print(mode, occ)
-        assert occ["local_bytes"] == 0, occ
-        assert occ["smem_bytes"] == 55824, occ
-        assert occ["ctas_per_sm"] == 4, occ
+    for ts in (16,) if fused else (8, 16, 32):
+        for mode in (RenderMode.SH3, RenderMode.BILLBOARD):
+            occ = b3.kernel_occupancy(mode, fused, ts)
+            print(ts, mode, occ)
+            assert occ["local_bytes"] == 0, occ
+            assert occ["smem_bytes"] == BWD_SMEM[ts], occ
+            assert occ["ctas_per_sm"] == BWD_CTAS[ts], occ
 
 
 @pytest.mark.gpu
@@ -511,11 +539,114 @@ def test_inference_kernels_take_tile_8_and_32(ts, width, height, mode,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ts,width,height", [(8, 160, 96), (32, 320, 192)])
+@pytest.mark.parametrize("mode,opacity,band", [
+    *((m, o, None) for m, o in CASES), (RenderMode.SH3, None, BAND)])
+def test_training_kernels_take_tile_8_and_32(ts, width, height, mode,
+                                             opacity, band):
+    """B2 and B3 at tile sizes 8 and 32, as JAX's XLA executor trains
+    there: B2's rgb at 1e-5 * max(1, |plain|), T, nproc and the whole
+    ckpt buffer (ceil(P / 128) rows) equal; B3 per table row within
+    1e-5 * max|plain row| and bit for bit from run to run; one launch
+    each; no spills but B2's 8 bytes at 32.  At tile 32 the opaque scene stops early at 320x192
+    (at 150x90 no 32x32 tile saturates whole)."""
+    dev = _card()
+    cfg = RenderConfig(width=width, height=height, mode=mode, tile_size=ts)
+    if band is not None:
+        band = dict(band, local_rows=cfg.tiles_y // 2)
+    args = _train_args(dev, cfg, opacity, band)
+    before = (b1.tile_raster_fwd_train.launches, b3.tile_raster_bwd.launches)
+    rgb, trans, ckpt, nproc = b1.tile_raster_fwd_train(*args)
+    torch.cuda.synchronize()
+    assert ckpt.shape[0] == b1.ckpt_rows(ts * ts)
+    prgb, ptrans, pckpt, pnproc = b1.tile_raster_fwd_train_plain(*args)
+    assert float(prgb.max()) > 0.1
+    assert _close(rgb, prgb) and _close(trans, ptrans)
+    assert torch.equal(nproc, pnproc) and torch.equal(ckpt, pckpt)
+    if opacity is not None:  # the opaque scene stops early somewhere
+        s = args[1].to(torch.int64)
+        nch = -(-(s[1:] - s[:-1] // 128 * 128) // 256)
+        assert bool((nproc.to(torch.int64) < nch).any())
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    g_rgb = torch.randn((*trans.shape, 3), generator=gen).to(dev)
+    g_trans = torch.randn(tuple(trans.shape), generator=gen).to(dev)
+    table, starts, counts, row_offset, *rest = args
+    bwd_args = (table, starts, counts, nproc, ckpt, row_offset, g_rgb,
+                g_trans, trans, *rest)
+    g = b3.tile_raster_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    assert (b1.tile_raster_fwd_train.launches,
+            b3.tile_raster_bwd.launches) == (before[0] + 1, before[1] + 1)
+    pg = b3.tile_raster_bwd_plain(*bwd_args)
+    assert float(pg.abs().max()) > 0
+    for c in range(16):
+        scale = float(pg[c].abs().max())
+        assert float((g[c] - pg[c]).abs().max()) <= 1e-5 * scale, c
+    assert torch.equal(g, b3.tile_raster_bwd(*bwd_args))
+    occ = b1.kernel_occupancy(mode, train=True, tile_size=ts)
+    print(ts, mode, "B2", occ)
+    # at 32 the checkpoint's 8 rows cost B2 8 spilled bytes in the
+    # gaussian and ball modes under the 64 registers of 2 CTAs per SM
+    assert occ["local_bytes"] <= (8 if ts == 32 else 0), occ
+    assert occ["smem_bytes"] == (12544 if ts == 8 else 12800), occ
+    occ = b3.kernel_occupancy(mode, False, ts)
+    print(ts, mode, "B3", occ)
+    assert occ["local_bytes"] == 0, occ
+    assert occ["smem_bytes"] == BWD_SMEM[ts], occ
+
+
+@pytest.mark.gpu
+def test_band_gradients_at_tile_32_on_card_match_cpu():
+    """The band programs of 2 interleaved shards (parallel/sharded_render.py)
+    at tile 32 under autograd on the card, B2 and B3 once per band on the
+    band tables: their summed gradients against the CPU's within
+    1e-4 * max|g|, as test_render_gradient_on_card_matches_cpu."""
+    from gaussiansplattingviewer_tpu_torch.models import GaussianData
+    from gaussiansplattingviewer_tpu_torch.parallel import sharded_render
+
+    dev = _card()
+    cfg = RenderConfig(width=320, height=200, tile_size=32,
+                       grad_fold_bf16=False)
+    scene = random_scene(20000, sh_degree=3, seed=12, extent=2.0,
+                         mean_scale=0.03)
+    cam = Camera(h=cfg.height, w=cfg.width)
+    cam.fovy = 1.0
+    eye = np.array([0.0, 0.0, 5.0], np.float32)
+    view = tf.look_at(eye, [0, 0, 0], [0, -1, 0])
+    proj = cam.get_project_matrix()
+    n = 2
+    rows = sharded_render._rows_per_shard(cfg, n)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        sc = scene.to(d)
+        leaves = [getattr(sc, f).detach().clone().requires_grad_(True)
+                  for f in ("xyz", "rot", "scale", "opacity", "sh")]
+        before = (b1.tile_raster_fwd_train.launches,
+                  b3.tile_raster_bwd.launches)
+        for idx in range(n):
+            band = sharded_render._render_band(
+                GaussianData(*leaves), view, proj, eye, cfg, rows,
+                row_stride=n, idx=idx)
+            (band * band).sum().backward()
+        want = n if d.type == "cuda" else 0
+        assert (b1.tile_raster_fwd_train.launches,
+                b3.tile_raster_bwd.launches) == (before[0] + want,
+                                                 before[1] + want)
+        grads.append([p.grad.cpu() for p in leaves])
+    for g_card, g_cpu in zip(*grads):
+        scale = float(g_cpu.abs().max())
+        assert scale > 0
+        assert float((g_card - g_cpu).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.gpu
 def test_cuda_kernels_refuse_other_tile_sizes():
-    """The training kernels (B2, B4 train, B3, B5) take 16x16 tiles only,
-    the JAX train kernel's limit: CUDA tensors at tile_size 8 raise and
-    nothing runs (no plain fallback, no launch), also through a render that
-    needs gradients.  Tile 24 raises for the inference kernels too."""
+    """The fused training kernels (B4 train, B5) take 16x16 tiles only, the
+    JAX fused path's limit (Pallas only, its train kernel's checkpoint
+    laid out for 256 pixels): CUDA tensors at tile_size 8 raise and
+    nothing runs (no plain fallback, no launch), also through a fused
+    render that needs gradients.  Tile 24 raises for every kernel."""
     dev = _card()
     cfg = RenderConfig(width=64, height=48, tile_size=8)
     table = torch.zeros((16, 600), device=dev)
@@ -527,23 +658,28 @@ def test_cuda_kernels_refuse_other_tile_sizes():
                b3.tile_raster_bwd_fused)
     before = [k.launches for k in kernels]
     with pytest.raises(ValueError, match="tile_size 16"):
-        b1.tile_raster_fwd_train(table, starts, counts, 0, cfg)
-    with pytest.raises(ValueError, match="tile_size 16"):
         b1.tile_raster_fwd_seeded(table, starts, counts, per_tile, 0, cfg,
                                   train=True)
     nproc = torch.zeros_like(counts)
     ckpt = torch.zeros((1, 600), device=dev)
     g_rgb = torch.zeros((cfg.num_tiles, 64, 3), device=dev)
     with pytest.raises(ValueError, match="tile_size 16"):
-        b3.tile_raster_bwd(table, starts, counts, nproc, ckpt, 0, g_rgb,
-                           per_tile, per_tile, cfg)
-    with pytest.raises(ValueError, match="tile_size 16"):
         b3.tile_raster_bwd_fused(table, starts, counts, nproc, nproc, ckpt, 0,
                                  g_rgb, per_tile, per_tile, per_tile,
                                  per_tile, 1024, cfg)
-    with pytest.raises(ValueError, match="tile_size"):
-        b1.tile_raster_fwd(table, starts[:5], counts[:4], 0,
-                           cfg.with_(tile_size=24, width=48, height=48))
+    c24 = cfg.with_(tile_size=24, width=48, height=48)
+    t24 = (table, starts[:5], counts[:4])
+    per24 = torch.ones((4, 576), device=dev)
+    g24 = torch.zeros((4, 576, 3), device=dev)
+    ck24 = torch.zeros((5, 600), device=dev)
+    for call in (
+            lambda: b1.tile_raster_fwd(*t24, 0, c24),
+            lambda: b1.tile_raster_fwd_train(*t24, 0, c24),
+            lambda: b1.tile_raster_fwd_seeded(*t24, per24, 0, c24),
+            lambda: b3.tile_raster_bwd(*t24, nproc[:4], ck24, 0, g24, per24,
+                                       per24, c24)):
+        with pytest.raises(ValueError, match="tile_size"):
+            call()
     assert before == [k.launches for k in kernels]
     scene = random_scene(500, sh_degree=0, seed=3, extent=2.0,
                          mean_scale=0.05).to(dev)
@@ -552,7 +688,9 @@ def test_cuda_kernels_refuse_other_tile_sizes():
     cam = Camera(h=cfg.height, w=cfg.width)
     with pytest.raises(ValueError, match="tile_size 16"):
         render(scene, view, cam.get_project_matrix(),
-               np.array([0, 0, 5.0], np.float32), cfg, device=dev)
+               np.array([0, 0, 5.0], np.float32),
+               cfg.with_(fused_grad=True, prefix_rows=8,
+                         residual_budget_rows=1 << 16), device=dev)
     assert before == [k.launches for k in kernels]
 
 

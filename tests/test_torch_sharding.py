@@ -8,9 +8,9 @@
   * ``band_precull_mask`` equal to JAX's, bit for bit;
   * ``_exchange_parts`` rows, valid and dropped equal to JAX's for 2, 4
     and 8 shards (8 takes the pool), its VJP within 1e-6;
-  * the band gradients of sum(img * w), summed over 4 bands, against JAX
-    ``make_sharded_render_fn`` on conftest's CPU mesh at 1e-5 * max|g|
-    (grad_fold_bf16 off)."""
+  * the band gradients of sum(img * w), summed over 4 bands (2 at tile
+    32), against JAX ``make_sharded_render_fn`` on conftest's CPU mesh at
+    1e-5 * max|g| (grad_fold_bf16 off)."""
 
 import jax
 import jax.numpy as jnp
@@ -139,15 +139,14 @@ def test_exchange_parts_matches_jax(n_shards, stride, factor):
                                    np.asarray(gj), atol=1e-6, err_msg=f)
 
 
-@pytest.mark.parametrize("interleaved", [False, True])
-def test_band_grads_sum_to_jax_sharded(interleaved):
-    cfg = JaxConfig(width=96, height=96, grad_fold_bf16=False)
+def _band_grads_vs_jax(cfg, n, interleaved):
+    """The band gradients of sum(img * w) over n shards, summed, against
+    JAX make_sharded_render_fn(use_pallas=False) at 1e-5 * max|g|."""
     scene = random_scene(300, sh_degree=0, seed=6, extent=2.0,
                          mean_scale=0.06)
     view, proj, eye = _setup(cfg, scene)
     weights = np.random.default_rng(5).normal(
         size=(cfg.height, cfg.width, 3)).astype(np.float32)
-    n = 4
     mesh = make_mesh(n)
     fn = make_sharded_render_fn(mesh, cfg, use_pallas=False,
                                 interleaved=interleaved)
@@ -173,3 +172,17 @@ def test_band_grads_sum_to_jax_sharded(interleaved):
         assert scale > 0, f
         np.testing.assert_allclose(getattr(ps, f).grad.numpy(), want,
                                    atol=1e-5 * scale, err_msg=f)
+
+
+@pytest.mark.parametrize("interleaved", [False, True])
+def test_band_grads_sum_to_jax_sharded(interleaved):
+    _band_grads_vs_jax(JaxConfig(width=96, height=96, grad_fold_bf16=False),
+                       4, interleaved)
+
+
+@pytest.mark.parametrize("interleaved", [False, True])
+def test_band_grads_sum_to_jax_sharded_at_tile_32(interleaved):
+    """B2 and B3's plain versions on band tables at tile 32 (3 tile rows
+    over 2 shards, one band padded), against JAX's sharded XLA executor."""
+    _band_grads_vs_jax(JaxConfig(width=150, height=90, tile_size=32,
+                                 grad_fold_bf16=False), 2, interleaved)

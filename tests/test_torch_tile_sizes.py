@@ -5,9 +5,12 @@
     Pallas backend in interpret mode, 160x96 at tile 8 and 150x90 at tile
     32, classic and fused, within 1e-5 * max(1, |ref|) where JAX reports
     overflow == truncated == 0.
-  * The JAX limit that keeps the training kernels (B2, B3, B5, B4 train)
-    at tile 16: jax.grad through the Pallas backend fails at tile 8 (the
-    train forward's checkpoint is laid out for 256 pixels).
+  * The JAX limit that keeps the fused training kernels (B4 train, B5) at
+    tile 16: jax.grad through the Pallas backend fails at tile 8 (the
+    train forward's checkpoint is laid out for 256 pixels, and JAX's fused
+    path runs only through Pallas); and what lets the classic training
+    kernels (B2, B3) take 8 and 32: jax.grad through the tile backend (the
+    XLA executor, classic path whatever fused_grad says) succeeds there.
   * The wrappers' tile-size rule for CUDA tensors.
 The kernels themselves at 8 and 32 are tests/test_torch_kernels_gpu.py's
 (they need the card)."""
@@ -80,8 +83,9 @@ def test_inference_any_tile_matches_jax_pallas(ts, width, height, path,
 
 
 def test_jax_grad_through_pallas_fails_at_tile_8():
-    """The parity that keeps B2, B3, B5 and B4 train at 16: JAX's own
-    training path through Pallas cannot take another tile size."""
+    """The parity that keeps B5 and B4 train at 16: JAX's training path
+    through Pallas, the only one its fused path has, cannot take another
+    tile size."""
     cfg = JaxConfig(width=64, height=48, tile_size=8)
     scene = random_scene(300, sh_degree=1, seed=3, extent=2.0,
                          mean_scale=0.06)
@@ -94,18 +98,45 @@ def test_jax_grad_through_pallas_fails_at_tile_8():
         jax.grad(loss)(scene.to_device())
 
 
+@pytest.mark.parametrize("fused_grad", [False, True])
+@pytest.mark.parametrize("ts", [8, 32])
+def test_jax_grad_through_tile_backend(ts, fused_grad):
+    """The reference trains at tile 8 and 32: jax.grad through the tile
+    backend (the classic blend_tiles custom_vjp on the XLA executor, which
+    takes the classic path for fused_grad configs too) returns finite,
+    nonzero gradients.  B2 and B3 take these sizes on the card for it."""
+    cfg = JaxConfig(width=64, height=48, tile_size=ts, fused_grad=fused_grad)
+    scene = random_scene(300, sh_degree=1, seed=3, extent=2.0,
+                         mean_scale=0.06)
+    view, proj, eye = _setup(cfg)
+
+    def loss(s):
+        return jnp.sum(jax_render(s, view, proj, eye, cfg, backend="tile")
+                       ** 2)
+
+    g = jax.grad(loss)(scene.to_device())
+    for f in ("xyz", "rot", "scale", "opacity", "sh"):
+        a = np.asarray(getattr(g, f))
+        assert np.isfinite(a).all() and np.abs(a).max() > 0, f
+
+
 @pytest.mark.parametrize("ts", [8, 16, 32, 24])
 def test_cuda_tile_size_rule(ts):
-    """B1 and B4 inference take 8, 16 and 32 on the card; the training
-    kernels 16, naming the JAX checkpoint layout; any other size raises."""
+    """B1, B2, B3 and B4 inference take 8, 16 and 32 on the card; the
+    fused training kernels (B4 train, B5) 16, naming the JAX route that
+    limits them; any other size raises for every kernel."""
     cfg = port_cfg(JaxConfig(width=64, height=64, tile_size=ts))
     if ts in (8, 16, 32):
-        b1.check_tile_size(cfg, train=False)
+        b1.check_tile_size(cfg)
     else:
         with pytest.raises(ValueError, match="tile_size"):
-            b1.check_tile_size(cfg, train=False)
+            b1.check_tile_size(cfg)
     if ts == 16:
-        b1.check_tile_size(cfg, train=True)
+        b1.check_tile_size(cfg, fused_train=True)
+    elif ts == 24:
+        with pytest.raises(ValueError, match="tile_size"):
+            b1.check_tile_size(cfg, fused_train=True)
     else:
-        with pytest.raises(ValueError, match="256 pixels"):
-            b1.check_tile_size(cfg, train=True)
+        with pytest.raises(ValueError, match="raster_tiles.py:68.*256 "
+                           "pixels.*tile_raster_fwd.py:334"):
+            b1.check_tile_size(cfg, fused_train=True)
