@@ -348,15 +348,18 @@ def rows_blended(tile_starts, nproc):
 
 
 def fragments_needed(table, tile_starts, tile_counts, nproc, cfg,
-                     row_offset=0, local_rows=None, row_stride=1):
+                     row_offset=0, local_rows=None, row_stride=1,
+                     square=False):
     """The (pixel, row) fragments a blend needs on this data, for bound_ms:
     for every row a tile blended before its early stop, the tile's pixels
     inside the row's rect, |px - cx| <= rx and |py - cy| <= ry (the
     kernels' own test: every other fragment has alpha 0 and no gradient).
     Returns (rows, fragments in the rects, fragments of the 64-pixel warp
-    bands the kernels' cull keeps), the last for the log only."""
+    bands the kernels' cull keeps: rows of the tile, or with ``square``
+    B3's 8x8 squares at 32x32), the last for the log only."""
     from gaussiansplattingviewer_tpu_torch.ops import binning as b
     from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
+        SQUARE,
         band_rows,
         tile_pixel_grid,
     )
@@ -386,16 +389,22 @@ def fragments_needed(table, tile_starts, tile_counts, nproc, cfg,
             <= table[b.COL_RY, c][:, None]
         nx = hx.sum(1)
         rect += int((nx * hy.sum(1)).sum())
-        band += int((hy.reshape(len(t), -1, br).any(2).sum(1)
-                     * (nx > 0)).sum()) * br * ts
+        if square:
+            gx = hx.reshape(len(t), -1, SQUARE).any(2).sum(1)
+            gy = hy.reshape(len(t), -1, SQUARE).any(2).sum(1)
+            band += int((gx * gy).sum()) * SQUARE * SQUARE
+        else:
+            band += int((hy.reshape(len(t), -1, br).any(2).sum(1)
+                         * (nx > 0)).sum()) * br * ts
     return total, rect, band
 
 
-def needed(tag, table, tile_starts, tile_counts, nproc, cfg, **band):
+def needed(tag, table, tile_starts, tile_counts, nproc, cfg, square=False,
+           **band):
     """fragments_needed, logged beside the whole-tile count; returns
     (rows blended, fragments in their rects)."""
     rows, rect, kept = fragments_needed(table, tile_starts, tile_counts,
-                                        nproc, cfg, **band)
+                                        nproc, cfg, square=square, **band)
     whole = rows * cfg.tile_size ** 2
     log(f"[bound] {tag}: {rows} rows blended; fragments in their rects "
         f"{rect} ({rect / max(whole, 1):.4f} of their tiles' {whole}), in "
@@ -637,8 +646,12 @@ def trained_at_tile(chk, zero_counts, counts, no_launch, scene, view, proj,
     log(f"{tag} plain versions (host clock): B2 {out['ms_b2_plain']:.3f} "
         f"ms, B3 {out['ms_b3_plain']:.3f} ms")
 
-    rows, frags = needed(f"B2, B3 tile {ts}", bs.table, bs.tile_starts,
-                         bs.tile_counts, nproc, cfg)
+    square = b3.square_bands(ts)
+    rows, frags = needed(f"B2{'' if square else ', B3'} tile {ts}", bs.table,
+                         bs.tile_starts, bs.tile_counts, nproc, cfg)
+    if square:  # B3's bands are 8x8 squares here
+        needed(f"B3 tile {ts} (8x8 square bands)", bs.table, bs.tile_starts,
+               bs.tile_counts, nproc, cfg, square=True)
     ntile, pixels, dpad = cfg.num_tiles, ts * ts, bs.table.shape[1]
     seg_bytes = (2 * ntile + 1) * 4
     ckpt_bytes = b1.ckpt_rows(pixels) * dpad * 4

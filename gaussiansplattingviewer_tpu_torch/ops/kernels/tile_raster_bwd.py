@@ -11,8 +11,9 @@ per-tile compact offsets with the splat id beside them).  The CUDA source
 to front from the forward's checkpoints), the fixed-order reduction, the
 exact warp cull, what bounds it on an H100 (FP32 issue) and what its
 design does about that.  ``warp_cull_plain`` (in ``tile_raster_fwd.py``,
-whose kernels cull the same way) is the plain mirror of the cull,
-``kernel_occupancy`` reports the kernels' resources as built.
+whose kernels cull the same way; B3's bands at 32x32 are 8x8 squares,
+``square_bands``) is the plain mirror of the cull, ``kernel_occupancy``
+reports the kernels' resources as built.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``, same signature and semantics) for CPU
@@ -20,7 +21,9 @@ tensors.  The plain version is the CPU
 executor and the reference the kernel is held against on the card: t_i and
 alpha are the kernel's bit for bit, and the suffix S runs in the kernel's
 order, so only the sums over a row's pixels differ in order.  On the card
-B3 takes tile_size 8, 16 or 32 and B5 16 (``check_tile_size``).
+B3 takes tile_size 8, 16 or 32 and B5 16 (``check_tile_size``); at 8 it
+stages one 128-row block at a time, at 32 it keeps two band-sum buffers
+and culls 8x8 square bands (the source's "Other tile sizes").
 """
 
 from __future__ import annotations
@@ -51,6 +54,13 @@ from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+def square_bands(tile_size: int) -> bool:
+    """Whether B3's warp bands are 8x8 squares at ``tile_size`` (32x32,
+    where the forward's 32x2 strips keep 1.6x the fragments), not the
+    forward's ``band_rows`` rows."""
+    return tile_size == 32
 
 
 def _check_residuals(table, nproc, ckpt, g_rgb, g_trans, out_trans,
@@ -254,7 +264,8 @@ def _block_grads(rows, live, t0, suffix, px, py, g_rgb, gto,
     zero = torch.zeros((), dtype=torch.float32, device=rows.device)
     dx, dy, gauss, alpha, unclamped = fragments(rows, live, px, py, cfg)
     if cull:
-        kept = warp_cull_pixels(rows, live, px, py)
+        kept = warp_cull_pixels(rows, live, px, py,
+                                square_bands(int(round(px.shape[1] ** 0.5))))
         alpha = torch.where(kept, alpha, zero)
         if unclamped is not None:
             unclamped = unclamped & kept

@@ -62,6 +62,7 @@ FUSED_TRAIN_TILE = 16
 # rows 4w .. 4w+3, i.e. pixels 64w .. 64w+63 (band_rows gives other sizes)
 BAND_PIXELS = 64
 BANDS = 16 * 16 // BAND_PIXELS  # of a 16x16 tile
+SQUARE = 8  # edge of a square band (the backward's at 32x32)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -380,34 +381,51 @@ def band_rows(ts: int) -> int:
     return rows if ts % rows == 0 else ts
 
 
-def warp_cull_plain(rows, live, px, py):
+def warp_cull_plain(rows, live, px, py, square=False):
     """The (row, band) pairs the kernels keep: (A, R, bands) bool for A
     tiles' rows (11, A, R), live (A, R), and their pixel centres px / py
     (A, P), P = ts * ts; a band is ``band_rows(ts)`` tile rows (4 bands of
-    4 rows in the kernels' 16x16 tile).
+    4 rows in the kernels' 16x16 tile), or with ``square`` an 8x8 square
+    (the backward's bands at 32x32, row-major: ``band_of_pixel``).
 
     The kernels' own rect test, fabsf(px - cx) <= rx and fabsf(py - cy) <=
     ry, at each of the tile's ts column centres and each band's row
-    centres: a band is the product of the two, so a row reaches one of its
-    pixels iff it reaches one of its columns and one of its rows.  Outside
-    the kept pairs every fragment has alpha == 0."""
+    centres: a band is the product of its columns and rows, so a row
+    reaches one of its pixels iff it reaches one of its columns and one of
+    its rows.  Outside the kept pairs every fragment has alpha == 0."""
     b = binning
     a_n, r_n = live.shape
     ts = int(round(px.shape[1] ** 0.5))
     col = lambda c: rows[c][:, :, None]  # noqa: E731  (A, R, 1)
     xs = px[:, None, :ts]                # the tile's column centres
     ys = py[:, None, ::ts]               # its row centres
-    x_hit = (torch.abs(xs - col(b.COL_CX)) <= col(b.COL_RX)).any(dim=2)
-    y_hit = (torch.abs(ys - col(b.COL_CY)) <= col(b.COL_RY)).reshape(
-        a_n, r_n, -1, band_rows(ts)).any(dim=3)
+    x_in = torch.abs(xs - col(b.COL_CX)) <= col(b.COL_RX)
+    y_in = torch.abs(ys - col(b.COL_CY)) <= col(b.COL_RY)
+    if square:
+        x_hit = x_in.reshape(a_n, r_n, -1, SQUARE).any(dim=3)
+        y_hit = y_in.reshape(a_n, r_n, -1, SQUARE).any(dim=3)
+        kept = (y_hit[:, :, :, None] & x_hit[:, :, None, :]).flatten(2)
+        return kept & live[:, :, None]
+    x_hit = x_in.any(dim=2)
+    y_hit = y_in.reshape(a_n, r_n, -1, band_rows(ts)).any(dim=3)
     return x_hit[:, :, None] & y_hit & live[:, :, None]
 
 
-def warp_cull_pixels(rows, live, px, py):
+def band_of_pixel(ts: int, square=False, device="cpu"):
+    """(P,) the band of each tile pixel (row-major): pixel p // BAND_PIXELS
+    for row bands, the 8x8 square (y // 8) * (ts // 8) + x // 8 with
+    ``square``."""
+    p = torch.arange(ts * ts, device=device)
+    if not square:
+        return p // (band_rows(ts) * ts)
+    return (p // ts // SQUARE) * (ts // SQUARE) + p % ts // SQUARE
+
+
+def warp_cull_pixels(rows, live, px, py, square=False):
     """``warp_cull_plain`` spread over the pixels: (A, R, P) bool."""
     ts = int(round(px.shape[1] ** 0.5))
-    return warp_cull_plain(rows, live, px, py).repeat_interleave(
-        band_rows(ts) * ts, dim=2)
+    return warp_cull_plain(rows, live, px, py, square)[
+        :, :, band_of_pixel(ts, square, px.device)]
 
 
 def _blend_window(rows, live, px, py, rgb, trans, cfg: RenderConfig,

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Compare the machine code (SASS) of the blend kernels' 16x16
 instantiations between this checkout's CUDA sources and another version
-of them, on a machine with nvcc and cuobjdump.
+of them, on a machine with nvcc and cuobjdump (the other version's 8x8
+and 32x32 instantiations are not compared).
 
-  python3 sass_compare.py --other DIR
+  python3 sass_compare.py --other DIR [--show N]
 
 DIR holds the other version's tile_raster_fwd.cu and tile_raster_bwd.cu,
 e.g. the parent commit's, unpacked with `git archive REV
@@ -13,7 +14,8 @@ DIR`.  Both versions are built with the port's own nvcc flags
 its demangled name to this version's 16x16 instantiation (the same name,
 or the name with the tile edge 16 added as the first template argument,
 for a kernel that has since been templated on it) and their instructions
-are compared line by line.  Prints one line per kernel and exits 1 if any
+are compared line by line.  Prints one line per kernel that differs (with
+--show, its first N differing instruction pairs) and exits 1 if any
 differs or has no match.  Needs no card.
 """
 
@@ -57,7 +59,9 @@ def sass(src: Path, out: Path) -> dict[str, list[str]]:
         if line.startswith("Function :"):
             lines = funcs.setdefault(line.split(":", 1)[1].strip(), [])
         elif lines is not None and line.startswith("/*"):
-            lines.append(line)
+            # cuobjdump pads its columns to the file's widest instruction,
+            # so spacing is not compared
+            lines.append(" ".join(line.split()))
     names = list(funcs)
     filt = shutil.which("cu++filt") or _tool("cu++filt")
     plain = subprocess.run([filt], input="\n".join(names), check=True,
@@ -81,6 +85,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path,
                     help="directory with the other version's sources")
+    ap.add_argument("--show", type=int, default=0, metavar="N",
+                    help="print the first N differing instruction pairs of "
+                         "each kernel that differs")
     args = ap.parse_args(argv)
     from gaussiansplattingviewer_tpu_torch.ops.kernels import build
 
@@ -90,8 +97,11 @@ def main(argv=None) -> int:
             new = sass(build.SRC_DIR / f"{name}.cu", Path(tmp) / f"{name}.so")
             old = sass(args.other / f"{name}.cu",
                        Path(tmp) / f"{name}-other.so")
-            same = 0
+            same = skipped = 0
             for kernel, code in sorted(old.items()):
+                if re.search(r"<\(int\)(8|32), ", kernel):
+                    skipped += 1  # another tile edge
+                    continue
                 twin = match(kernel, new)
                 if twin is None:
                     print(f"[sass] {name}: {kernel}: no match")
@@ -102,12 +112,15 @@ def main(argv=None) -> int:
                 if diff:
                     print(f"[sass] {name}: {kernel} -> {twin}: {diff} of "
                           f"{len(code)} lines differ")
+                    pairs = [(a, b) for a, b in zip(code, new[twin]) if a != b]
+                    for a, b in pairs[:args.show]:
+                        print(f"[sass]   other {a}\n[sass]   this  {b}")
                     bad += 1
                 else:
                     same += 1
-            print(f"[sass] {name}: {same} of {len(old)} kernels of the other "
-                  f"version identical to this version's ({len(new)} kernels "
-                  f"in all)")
+            print(f"[sass] {name}: {same} of {len(old) - skipped} 16x16 "
+                  f"kernels of the other version identical to this "
+                  f"version's ({len(new)} kernels in all)")
     return 1 if bad else 0
 
 

@@ -482,18 +482,20 @@ def test_tile_raster_fwd_resources(train, seeded):
 
 
 # the backward's shared memory per CTA and CTAs per SM by tile size
-# (csrc/tile_raster_bwd.cu): 16 warps per SM at 16 and 32, shared memory
-# holding 9 one-warp CTAs at 8
-BWD_SMEM = {8: 23376, 16: 55824, 32: 185920}
-BWD_CTAS = {8: 9, 16: 4, 32: 1}
+# (csrc/tile_raster_bwd.cu): 16 warps per SM at 16 and 32 (two band-sum
+# buffers at 32), shared memory holding 14 one-warp CTAs at 8 (128-row
+# staged blocks, 8-row sub-blocks)
+BWD_SMEM = {8: 14768, 16: 55824, 32: 195200}
+BWD_CTAS = {8: 14, 16: 4, 32: 1}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("fused", [False, True])
 def test_tile_raster_bwd_resources(fused):
     """The backward template as built: no spills, the shared memory layout
-    of csrc/tile_raster_bwd.cu (55,824 bytes at 16) and its CTAs per SM
-    (4 at 16), for B3 at tile 8, 16 and 32 and B5 at 16."""
+    of csrc/tile_raster_bwd.cu (55,824 bytes at 16, 14,768 at 8, 195,200
+    at 32) and its CTAs per SM (4, 14 and 1), for B3 at tile 8, 16 and 32
+    and B5 at 16."""
     _card()
     for ts in (16,) if fused else (8, 16, 32):
         for mode in (RenderMode.SH3, RenderMode.BILLBOARD):
@@ -594,6 +596,43 @@ def test_training_kernels_take_tile_8_and_32(ts, width, height, mode,
     print(ts, mode, "B3", occ)
     assert occ["local_bytes"] == 0, occ
     assert occ["smem_bytes"] == BWD_SMEM[ts], occ
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [8, 32])
+@pytest.mark.parametrize("mode", [RenderMode.SH3, RenderMode.DEPTH])
+def test_tile_raster_bwd_multi_window_at_tile_8_and_32(ts, mode):
+    """B3 at tile 8 (128-row staged blocks, 8-row sub-blocks) and 32 (two
+    band-sum buffers used in turn) on a dense, faint scene whose tiles walk
+    several 256-row windows: per table row within 1e-5 * max|plain row|,
+    the same bits from launch to launch, one launch."""
+    dev = _card()
+    cfg = RenderConfig(width=320, height=192, mode=mode, tile_size=ts)
+    scene = random_scene(40000, sh_degree=3, seed=14, extent=1.2,
+                         mean_scale=0.04)
+    scene.opacity.fill_(0.1)  # faint: tiles walk their lists to the end
+    cam = Camera(h=cfg.height, w=cfg.width)
+    cam.fovy = 1.0
+    eye = np.array([0.1, -0.1, 4.0], np.float32)
+    view = tf.look_at(eye, [0, 0, 0], [0, -1, 0])
+    bs = binning.bin_splats(project(scene.to(dev), view,
+                                    cam.get_project_matrix(), eye, cfg), cfg)
+    args = (bs.table, bs.tile_starts, bs.tile_counts, 0, cfg)
+    _, trans, ckpt, nproc = b1.tile_raster_fwd_train(*args)
+    assert int(nproc.max()) >= 3, "some tile must walk 3 windows or more"
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    g_rgb = torch.randn((*trans.shape, 3), generator=gen).to(dev)
+    g_trans = torch.randn(tuple(trans.shape), generator=gen).to(dev)
+    bwd_args = (bs.table, bs.tile_starts, bs.tile_counts, nproc, ckpt, 0,
+                g_rgb, g_trans, trans, cfg)
+    before = b3.tile_raster_bwd.launches
+    g = b3.tile_raster_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    assert b3.tile_raster_bwd.launches == before + 1
+    pg = b3.tile_raster_bwd_plain(*bwd_args)
+    assert float(pg.abs().max()) > 0
+    _assert_rows_close(g, pg, 16)
+    assert torch.equal(g, b3.tile_raster_bwd(*bwd_args))
 
 
 @pytest.mark.gpu
