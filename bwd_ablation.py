@@ -366,22 +366,29 @@ def _pose(w, h, z):
         eye
 
 
-def full_table(dev, tile_size=16):
-    """(binned splats, cfg) of the 1M-splat bench scene at 1920x1080 and
-    ``tile_size`` (chip_smoke.py phases 4, 5 and 5b)."""
-    from gaussiansplattingviewer_tpu_torch.config import RenderConfig
+def full_splats(dev, cfg):
+    """The 1M-splat bench scene at 1920x1080 projected for ``cfg``
+    (chip_smoke.py phases 4, 4b, 5 and 5b)."""
     from gaussiansplattingviewer_tpu_torch.models import random_scene
-    from gaussiansplattingviewer_tpu_torch.ops import binning
     from gaussiansplattingviewer_tpu_torch.ops.projection import project
 
-    cfg = RenderConfig(width=cs.FULL_W, height=cs.FULL_H,
-                       tile_size=tile_size)
     view, proj, eye = _pose(cs.FULL_W, cs.FULL_H, 9.0)
     scene = random_scene(cs.FULL_SPLATS, sh_degree=3, seed=0, extent=4.0,
                          mean_scale=0.015).pad_to_multiple(1024).to(dev)
     with torch.no_grad():
-        return binning.bin_splats(project(scene, view, proj, eye, cfg),
-                                  cfg), cfg
+        return project(scene, view, proj, eye, cfg)
+
+
+def full_table(dev, tile_size=16):
+    """(binned splats, cfg) of the 1M-splat bench scene at 1920x1080 and
+    ``tile_size`` (chip_smoke.py phases 4, 5 and 5b)."""
+    from gaussiansplattingviewer_tpu_torch.config import RenderConfig
+    from gaussiansplattingviewer_tpu_torch.ops import binning
+
+    cfg = RenderConfig(width=cs.FULL_W, height=cs.FULL_H,
+                       tile_size=tile_size)
+    with torch.no_grad():
+        return binning.bin_splats(full_splats(dev, cfg), cfg), cfg
 
 
 def garden_passes(dev):

@@ -348,19 +348,19 @@ def rows_blended(tile_starts, nproc):
 
 
 def fragments_needed(table, tile_starts, tile_counts, nproc, cfg,
-                     row_offset=0, local_rows=None, row_stride=1,
-                     square=False):
+                     row_offset=0, local_rows=None, row_stride=1):
     """The (pixel, row) fragments a blend needs on this data, for bound_ms:
     for every row a tile blended before its early stop, the tile's pixels
     inside the row's rect, |px - cx| <= rx and |py - cy| <= ry (the
     kernels' own test: every other fragment has alpha 0 and no gradient).
     Returns (rows, fragments in the rects, fragments of the 64-pixel warp
-    bands the kernels' cull keeps: rows of the tile, or with ``square``
-    B3's 8x8 squares at 32x32), the last for the log only."""
+    bands the kernels' cull keeps: rows of the tile, or at 32x32 8x8
+    squares, ``square_bands``), the last for the log only."""
     from gaussiansplattingviewer_tpu_torch.ops import binning as b
     from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
         SQUARE,
         band_rows,
+        square_bands,
         tile_pixel_grid,
     )
 
@@ -379,7 +379,7 @@ def fragments_needed(table, tile_starts, tile_counts, nproc, cfg,
     tile = torch.repeat_interleave(torch.arange(len(n), device=dev), n)
     first = torch.repeat_interleave(s - (torch.cumsum(n, 0) - n), n)
     rect = band = 0
-    br = band_rows(ts)
+    br, square = band_rows(ts), square_bands(ts)
     for i in range(0, total, 1 << 22):
         t = tile[i:i + (1 << 22)]
         c = first[i:i + (1 << 22)] + torch.arange(i, i + len(t), device=dev)
@@ -399,12 +399,11 @@ def fragments_needed(table, tile_starts, tile_counts, nproc, cfg,
     return total, rect, band
 
 
-def needed(tag, table, tile_starts, tile_counts, nproc, cfg, square=False,
-           **band):
+def needed(tag, table, tile_starts, tile_counts, nproc, cfg, **band):
     """fragments_needed, logged beside the whole-tile count; returns
     (rows blended, fragments in their rects)."""
     rows, rect, kept = fragments_needed(table, tile_starts, tile_counts,
-                                        nproc, cfg, square=square, **band)
+                                        nproc, cfg, **band)
     whole = rows * cfg.tile_size ** 2
     log(f"[bound] {tag}: {rows} rows blended; fragments in their rects "
         f"{rect} ({rect / max(whole, 1):.4f} of their tiles' {whole}), in "
@@ -646,12 +645,8 @@ def trained_at_tile(chk, zero_counts, counts, no_launch, scene, view, proj,
     log(f"{tag} plain versions (host clock): B2 {out['ms_b2_plain']:.3f} "
         f"ms, B3 {out['ms_b3_plain']:.3f} ms")
 
-    square = b3.square_bands(ts)
-    rows, frags = needed(f"B2{'' if square else ', B3'} tile {ts}", bs.table,
-                         bs.tile_starts, bs.tile_counts, nproc, cfg)
-    if square:  # B3's bands are 8x8 squares here
-        needed(f"B3 tile {ts} (8x8 square bands)", bs.table, bs.tile_starts,
-               bs.tile_counts, nproc, cfg, square=True)
+    rows, frags = needed(f"B2, B3 tile {ts}", bs.table, bs.tile_starts,
+                         bs.tile_counts, nproc, cfg)
     ntile, pixels, dpad = cfg.num_tiles, ts * ts, bs.table.shape[1]
     seg_bytes = (2 * ntile + 1) * 4
     ckpt_bytes = b1.ckpt_rows(pixels) * dpad * 4

@@ -2,33 +2,43 @@
 """Ablation of the blend forward (kernels B1, B2 and B4, one template in
 gaussiansplattingviewer_tpu_torch/csrc/tile_raster_fwd.cu) on one CUDA card.
 
-  python3 fwd_ablation.py [--source NAME=PATH.cu ...]
+  python3 fwd_ablation.py [--tiles 8,16,32] [--no-garden] [--base PATH.cu]
+                          [--source NAME=PATH.cu ...]
 
-Builds the source as it is ("base") and variants of it, each with one step
-of the design switched off by a text patch, plus any other source of the
-same C interface named with --source (an earlier version of the file that
-takes the tile size argument, say: `git show
-REV:gaussiansplattingviewer_tpu_torch/csrc/tile_raster_fwd.cu`), all at
-16x16 tiles,
-and times each with CUDA events on real inputs: B1 and B2 on the 1M-splat
-1920x1080 table (chip_smoke.py phases 4 and 5), B4 (train variant) on the
-same table entering with a seeded transmittance, B2 on the garden step's
-pass-1 table and B4 on its pass-2 table (phase 8).  Every variant and every
---source computes the same function, so each is held bit for bit to base
-in rgb, T, nproc and ckpt on every input; base is held to the plain
-version (rgb within 1e-5 * max(1, |plain|), the rest equal).  Also prints,
-over a sample of tiles, the share of blended (row, band) pairs the warp
-cull keeps and how evenly the 4 bands share a window's lit rows.  Needs
-the card and nvcc; imports no JAX.
+Builds the source as it is ("base", or --base) and variants of it, each
+with one step of the design switched off or replaced by a text patch,
+plus any other source of the same C interface named with --source (the
+parent's, say: `git show
+REV:gaussiansplattingviewer_tpu_torch/csrc/tile_raster_fwd.cu`), all
+nvcc processes started together, and times each with CUDA events on real
+inputs at each of --tiles: B1 and B2 on the 1M-splat 1920x1080 table
+(chip_smoke.py phases 4, 4b, 5 and 5b) and B4 (inference) on the fused
+serving path's pass-2 inputs (phase 4b's prefix); at 16 also B4 (train
+variant) on the 1M table entering with a seeded transmittance, B2 on the
+garden step's pass-1 table and B4 on its pass-2 table (phase 9; left out
+with --no-garden).  Every variant and every --source computes the same
+function, so each is held bit for bit to base in rgb, T, nproc and ckpt
+on every input and to its own second launch (but the timing-only
+variants, whose results are discarded); base is held to the plain
+version (rgb within 1e-5 * max(1, |plain|), the rest equal).  The
+clock-probe variant gives the spread of the CTAs' times, the tail after
+the last CTA started and the warps resident per SM.  Also prints each
+variant's registers, shared memory and CTAs per SM as built and, over a
+sample of tiles, the share of blended (row, band) pairs the warp cull
+keeps and how evenly the bands share a window's kept rows, at 32 for
+32x2 strips and for 8x8 squares.  Needs the card and nvcc; imports no
+JAX.
 """
 
 from __future__ import annotations
 
+import ctypes
 import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import bwd_ablation as ba
@@ -68,7 +78,8 @@ _COLUMN_PER_PIXEL = '''  float alpha[kPix], gauss[kPix];
     const float dy = py[i] - q.cy;
 '''
 _PX = '''  const float px =
-      tx * kTile + static_cast<float>(pixel_of(warp, lane, 0) % kTile) + 0.5f;
+      tx * kTile + static_cast<float>(pixel_of<TILE>(warp, lane, 0) % kTile) +
+      0.5f;
 '''
 # a copy of px per pixel that the compiler cannot prove equal (a shuffle
 # from the thread's own lane), so nothing of the column is shared
@@ -76,7 +87,7 @@ _PX_PER_PIXEL = '''  float px[kPix];
 #pragma unroll
   for (int i = 0; i < kPix; ++i) {
     px[i] = __shfl_sync(kFull, tx * kTile + static_cast<float>(
-        pixel_of(warp, lane, 0) % kTile) + 0.5f, lane + 32 * i);
+        pixel_of<TILE>(warp, lane, 0) % kTile) + 0.5f, lane + 32 * i);
   }
 '''
 _ONE_ROW = '''      blend_row<MODE>(&sm.rows[j * 3], px, py, prm, T, acc);
@@ -139,72 +150,205 @@ _QUADRANT_MASK = '''  unsigned m = 0;
 '''
 
 
-# name: (text patches, what is held): as in bwd_ablation.py; every variant
-# computes the same function, so each is held bit-equal to base
+# the CTA clock probe: thread 0 of each CTA writes, after a barrier at the
+# kernel's end, its SM, its start and end on the global timer (low 32
+# bits, ns), its SM clock cycles and a 1.0f into a device buffer that
+# gsv_probe_read copies out (rows of bwd_ablation.probe_report's layout)
+_PROBE = [
+    ("// TRAIN = false is kernel B1, TRAIN = true kernel B2",
+     "constexpr int kProbeMax = 1 << 16;\n"
+     "__device__ int gsv_probe_buf[5 * kProbeMax];\n\n"
+     "// TRAIN = false is kernel B1, TRAIN = true kernel B2"),
+    ("  const int t = blockIdx.x;\n",
+     "  long long probe_t0;\n"
+     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(probe_t0));\n"
+     "  const long long probe_c0 = clock64();\n"
+     "  const int t = blockIdx.x;\n"),
+    ("  if (TRAIN && tid == 0) out_nproc[t] = ci;\n}",
+     "  if (TRAIN && tid == 0) out_nproc[t] = ci;\n"
+     "  __syncthreads();\n"
+     "  if (tid == 0 && t < kProbeMax) {\n"
+     "    long long t1;\n"
+     "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t1));\n"
+     "    const long long c1 = clock64();\n"
+     "    unsigned smid;\n"
+     "    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(smid));\n"
+     "    gsv_probe_buf[t] = static_cast<int>(smid);\n"
+     "    gsv_probe_buf[kProbeMax + t] =\n"
+     "        static_cast<int>(static_cast<unsigned>(probe_t0));\n"
+     "    gsv_probe_buf[2 * kProbeMax + t] =\n"
+     "        static_cast<int>(static_cast<unsigned>(t1));\n"
+     "    gsv_probe_buf[3 * kProbeMax + t] = static_cast<int>(c1 - probe_c0);\n"
+     "    gsv_probe_buf[4 * kProbeMax + t] = __float_as_int(1.0f);\n"
+     "  }\n"
+     "}"),
+    ('extern "C" const char* gsv_cuda_error_string(int code) {',
+     'extern "C" int gsv_probe_read(int* dst, int n) {\n'
+     "  for (int k = 0; k < 5; ++k) {\n"
+     "    const cudaError_t e = cudaMemcpyFromSymbol(\n"
+     "        dst + k * n, gsv_probe_buf, n * sizeof(int),\n"
+     "        k * kProbeMax * sizeof(int));\n"
+     "    if (e != cudaSuccess) return static_cast<int>(e);\n"
+     "  }\n"
+     "  return 0;\n"
+     "}\n\n"
+     'extern "C" const char* gsv_cuda_error_string(int code) {')]
+# double-buffered windows: two windows' shared memory; window ci + 1 is
+# staged into the other buffer before window ci is blended, so one barrier
+# per window (the stop test's) orders both the staging and the reuse
+_DOUBLE_BUFFER = [
+    ("  __shared__ Smem<TILE> sm;\n", "  __shared__ Smem<TILE> smb[2];\n"),
+    ("  int ci = 0;\n  for (; ci < num_chunks; ++ci) {\n",
+     "  if constexpr (G::kStageRows == kChunk) {\n"
+     "    if (num_chunks > 0) {\n"
+     "      stage_rows<TILE>(smb[0], table, dpad, base, start, end, tid, tx,"
+     " ty);\n"
+     "    }\n"
+     "  }\n"
+     "  int ci = 0;\n  for (; ci < num_chunks; ++ci) {\n"),
+    ("    const int w0 = base + ci * kChunk;\n",
+     "    const int w0 = base + ci * kChunk;\n"
+     "    Smem<TILE>& sm = smb[ci & 1];\n"),
+    ("      stage_rows<TILE>(sm, table, dpad, w0, start, end, tid, tx, ty);\n"
+     "      __syncthreads();\n",
+     "      if (ci + 1 < num_chunks) {\n"
+     "        stage_rows<TILE>(smb[(ci + 1) & 1], table, dpad, w0 + kChunk,"
+     " start,\n"
+     "                         end, tid, tx, ty);\n"
+     "      }\n"),
+]
+PROBE_MAX = 1 << 16
+
+# name: (text patches, what is held, tile sizes or None for all), as in
+# bwd_ablation.py.  Held: "bits" equal to base and to its own second
+# launch, "probe" as "bits" plus the probe's report, None nothing (timing
+# only: what a step costs).  A variant whose patch target is not in the
+# source is skipped.
 VARIANTS = {
-    "base": ([], "bits"),
-    "no warp cull": ([("  return m;\n}", "  return (1u << kWarps) - 1;\n}")],
-                     "bits"),
+    "base": ([], "bits", None),
+    "no warp cull": ([("  return m;\n}", "  return (1u << kWarps) - 1;\n}"),
+                      (("    return m;\n  }\n", None),
+                       "    return (1u << kWarps) - 1;\n  }\n")],
+                     "bits", None),
     "scalar staging (11 shared loads per row)": (
-        [(_SHAPE, _SHAPE_SCALAR), (_COLOUR, _COLOUR_SCALAR)], "bits"),
+        [(_SHAPE, _SHAPE_SCALAR), (_COLOUR, _COLOUR_SCALAR)], "bits",
+        (16,)),
     "no shared column term": ([
         (_COLUMN, _COLUMN_PER_PIXEL), (_PX, _PX_PER_PIXEL),
         ("blend_row(const float4* row, float px,",
          "blend_row(const float4* row, const float (&px)[kPix],"),
         ("                                           float px, const float",
          "                                           const float (&px)[kPix],"
-         " const float")], "bits"),
-    "rows two at a time": ([(_ONE_ROW, _TWO_ROWS)], "bits"),
+         " const float")], "bits", (16,)),
+    "rows two at a time": ([(_ONE_ROW, _TWO_ROWS)], "bits", None),
     "1 pixel per thread": ([("constexpr int kPix = 2;",
-                             "constexpr int kPix = 1;"), *_ONLY_16], "bits"),
+                             "constexpr int kPix = 1;"), *_ONLY_16], "bits",
+                           (16,)),
     "4 pixels per thread": ([("constexpr int kPix = 2;",
                               "constexpr int kPix = 4;"), *_ONLY_16],
-                            "bits"),
+                            "bits", (16,)),
     "8x8 quadrants per warp": (
-        [_QUADRANT_PIXEL, (_BAND_MASK, _QUADRANT_MASK), *_ONLY_16], "bits"),
+        [_QUADRANT_PIXEL, (_BAND_MASK, _QUADRANT_MASK), *_ONLY_16], "bits",
+        (16,)),
     "6 CTAs per SM (launch bounds)": (
         [("constexpr int kMinCtas = 32 / kWarps;",
-          "constexpr int kMinCtas = 24 / kWarps;")], "bits"),
+          "constexpr int kMinCtas = 24 / kWarps;"), *_ONLY_16], "bits",
+        (16,)),
     "10 CTAs per SM (launch bounds)": (
         [("constexpr int kMinCtas = 32 / kWarps;",
-          "constexpr int kMinCtas = 40 / kWarps;")], "bits"),
+          "constexpr int kMinCtas = 40 / kWarps;"), *_ONLY_16], "bits",
+        (16,)),
+    "CTA clock probe": (_PROBE, "probe", None),
+    "no window barriers (timing only)": (
+        [("    if (!__syncthreads_or(live)) break;",
+          "    if (!__any_sync(kFull, live)) break;"),
+         (("      __syncthreads();\n      const int lo = max(start - w0, 0);",
+           None), "      const int lo = max(start - w0, 0);"),
+         (("    __syncthreads();\n    const int lo = max(start - w0, 0);",
+           None), "    const int lo = max(start - w0, 0);")], None, None),
+    "tile 32: 32x2 bands (the parent's)": (
+        [("kSquare = TILE == 32;", "kSquare = false;")], "bits", (32,)),
+    "tile 32: double-buffered windows": (_DOUBLE_BUFFER, "bits", (32,)),
+    "tile 8: 256-row windows staged (the parent's)": (
+        [("kStageRows = TILE == 8 ? kAlign : kChunk", "kStageRows = kChunk")],
+        "bits", (8,)),
 }
 
 
-def inputs(dev):
-    """{tag: (wrapper, args, kwargs)} of the timed launches."""
+def probe_rows(lib, n, dev):
+    """The clock probe's rows for the last launch's n CTAs, laid out as
+    bwd_ablation.probe_report reads them (rows 9-13 of a (14, n) f32)."""
+    buf = (ctypes.c_int * (5 * n))()
+    lib.gsv_probe_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.gsv_probe_read.restype = ctypes.c_int
+    torch.cuda.synchronize()
+    rc = lib.gsv_probe_read(ctypes.addressof(buf), n)
+    if rc:
+        raise RuntimeError(f"gsv_probe_read: CUDA error {rc}")
+    g = torch.zeros((14, n), dtype=torch.float32)
+    g[9:14] = torch.from_numpy(
+        np.ctypeslib.as_array(buf).reshape(5, n).view(np.float32).copy())
+    return g.to(dev)
+
+
+def inputs(dev, ts, garden):
+    """{tag: (wrapper, args, kwargs, tiles)} of the timed launches at tile
+    size ``ts``; prints the cull's shares on the 1M step's table."""
+    from gaussiansplattingviewer_tpu_torch.config import RenderConfig
+    from gaussiansplattingviewer_tpu_torch.ops import binning, fused
     from gaussiansplattingviewer_tpu_torch.ops.kernels import (
         tile_raster_fwd as b1,
     )
 
-    bs, cfg = ba.full_table(dev)
-    table = (bs.table, bs.tile_starts, bs.tile_counts, 0, cfg)
+    cfg = RenderConfig(width=cs.FULL_W, height=cs.FULL_H, tile_size=ts)
+    splats = ba.full_splats(dev, cfg)
     with torch.no_grad():
+        bs = binning.bin_splats(splats, cfg)
+        table = (bs.table, bs.tile_starts, bs.tile_counts, 0, cfg)
         _, _, _, nproc = b1.tile_raster_fwd_train(*table)
-        ba.shares("1M frame", bs.table, bs.tile_starts, nproc, cfg,
-                  sizes=(256,))
-    gen = torch.Generator(device="cpu").manual_seed(5)
-    t_init = 0.2 + 0.8 * torch.rand((cfg.num_tiles, 256), generator=gen)
-    t_init[::7] = 5e-5  # some tiles enter saturated
-    seeded = (bs.table, bs.tile_starts, bs.tile_counts, t_init.to(dev), 0,
-              cfg)
-
-    f, gcfg = ba.garden_passes(dev)
-    with torch.no_grad():
-        ba.shares("garden pass 1", f["table1"], f["pstarts_c"], f["nproc1"],
-                  gcfg, sizes=(256,))
-    return {
-        "B1 1M frame": (b1.tile_raster_fwd, table, {}),
-        "B2 1M step": (b1.tile_raster_fwd_train, table, {}),
-        "B4 1M seeded": (b1.tile_raster_fwd_seeded, seeded,
-                         {"train": True}),
-        "B2 garden pass 1": (b1.tile_raster_fwd_train,
-                             (f["table1"], f["pstarts_c"], f["pcounts"], 0,
-                              gcfg), {}),
-        "B4 garden pass 2": (b1.tile_raster_fwd_seeded,
-                             (f["table2"], f["rstarts_c"], f["rcounts"],
-                              f["trans1"], 0, gcfg), {"train": True}),
+        for square in (False, True) if ts == 32 else (False,):
+            ba.shares(f"1M step tile {ts}"
+                      + (", 8x8 square bands" if square else ""),
+                      bs.table, bs.tile_starts, nproc, cfg, sizes=(256,),
+                      square=square)
+        cf = cs.fused_serving(cfg, cs.FULL_PREFIX[ts])
+        pres = binning.bin_splats_presort(splats, cf)
+        f = fused._forward(cf, cf.tiles_y, 1, pres.table_src,
+                           pres.rows_sorted, pres.starts_full, 0,
+                           train=False)
+        del pres, splats
+    nt = cfg.num_tiles
+    runs = {
+        f"B1 1M frame t{ts}": (b1.tile_raster_fwd, table, {}, nt),
+        f"B2 1M step t{ts}": (b1.tile_raster_fwd_train, table, {}, nt),
+        f"B4 1M fused pass 2 t{ts}": (
+            b1.tile_raster_fwd_seeded,
+            (f["table2"], f["rstarts_c"], f["rcounts"], f["trans1"], 0, cf),
+            {}, nt),
     }
+    if ts != 16:
+        return runs
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    t_init = 0.2 + 0.8 * torch.rand((nt, 256), generator=gen)
+    t_init[::7] = 5e-5  # some tiles enter saturated
+    runs["B4 1M seeded (train)"] = (
+        b1.tile_raster_fwd_seeded, (bs.table, bs.tile_starts,
+                                    bs.tile_counts, t_init.to(dev), 0, cfg),
+        {"train": True}, nt)
+    if garden:
+        g, gcfg = ba.garden_passes(dev)
+        with torch.no_grad():
+            ba.shares("garden pass 1", g["table1"], g["pstarts_c"],
+                      g["nproc1"], gcfg, sizes=(256,))
+        runs["B2 garden pass 1"] = (
+            b1.tile_raster_fwd_train,
+            (g["table1"], g["pstarts_c"], g["pcounts"], 0, gcfg), {},
+            gcfg.num_tiles)
+        runs["B4 garden pass 2"] = (
+            b1.tile_raster_fwd_seeded,
+            (g["table2"], g["rstarts_c"], g["rcounts"], g["trans1"], 0,
+             gcfg), {"train": True}, gcfg.num_tiles)
+    return runs
 
 
 def plain_of(fn):
@@ -238,17 +382,30 @@ def main(argv=None) -> int:
                     metavar="NAME=PATH",
                     help="time another tile_raster_fwd.cu as NAME (held "
                          "bit-equal to base)")
+    ap.add_argument("--base", metavar="PATH",
+                    help="patch and time this tile_raster_fwd.cu as base "
+                         "(default: the checkout's)")
+    ap.add_argument("--tiles", default="8,16,32",
+                    help="tile sizes to time at (comma-separated)")
+    ap.add_argument("--no-garden", action="store_true",
+                    help="leave out the garden passes (timed at 16)")
     args = ap.parse_args(argv)
-    sources = {}
+    tiles = [int(x) for x in args.tiles.split(",")]
+    variants = dict(VARIANTS)
+    sources = {"base": Path(args.base).read_text()} if args.base else {}
     for item in args.source:
         name, path = item.split("=", 1)
-        VARIANTS[name] = ([], "bits")
+        variants[name] = ([], "bits", None)
         sources[name] = Path(path).read_text()
     if not torch.cuda.is_available():
         print("fwd_ablation: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    from gaussiansplattingviewer_tpu_torch.config import RenderMode
     from gaussiansplattingviewer_tpu_torch.ops.kernels import build
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_fwd as b1,
+    )
 
     dev = torch.device("cuda")
     cs.log("[card] " + subprocess.run(
@@ -256,27 +413,55 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
     with tempfile.TemporaryDirectory() as tmp:
-        libs = ba.build_variants(Path(tmp), sources, VARIANTS,
+        libs = ba.build_variants(Path(tmp), sources, variants,
                                  "tile_raster_fwd")
-        runs = inputs(dev)
-        base = {}
-        for rnd in range(2):
-            for name in VARIANTS:
-                build._LIBS["tile_raster_fwd"] = libs[name]
-                times, same = [], True
-                for tag, (fn, a, kw) in runs.items():
-                    fn(*a, **kw)  # warm-up
-                    ms, out = cs.cuda_ms(lambda: fn(*a, **kw), 10)
-                    times.append(f"{tag} {ms:.3f} ms")
-                    if tag not in base:
-                        base[tag] = [o.clone() for o in out]
-                        hold_to_plain(tag, out, plain_of(fn)(*a, **kw))
-                    same &= all(torch.equal(x, y)
-                                for x, y in zip(out, base[tag]))
-                cs.log(f"[ablate] round {rnd} {name}: " + ", ".join(times)
-                       + f"; bit-equal to base in rgb, T, ckpt, nproc {same}")
-                if not same:
-                    raise AssertionError(f"{name} changed the function")
+        for name in libs:
+            build._LIBS["tile_raster_fwd"] = libs[name]
+            for ts in tiles:
+                if variants[name][2] and ts not in variants[name][2]:
+                    continue
+                for kernel, kw in (("B1", {}), ("B2", {"train": True})):
+                    occ = b1.kernel_occupancy(RenderMode.SH3, tile_size=ts,
+                                              **kw)
+                    cs.log(f"[occupancy] {name} tile {ts} {kernel} SH3: "
+                           f"{occ}")
+        for ts in tiles:
+            runs = inputs(dev, ts, not args.no_garden)
+            base = {}
+            for rnd in range(2):
+                for name, (_, held, only) in variants.items():
+                    if name not in libs or (only and ts not in only):
+                        continue
+                    build._LIBS["tile_raster_fwd"] = libs[name]
+                    times, same, again = [], True, True
+                    for tag, (fn, a, kw, ntiles) in runs.items():
+                        fn(*a, **kw)  # warm-up
+                        ms, out = cs.cuda_ms(lambda: fn(*a, **kw), 10)
+                        times.append(f"{tag} {ms:.3f} ms")
+                        if held == "probe":
+                            ba.probe_report(
+                                f"{tag} round {rnd}",
+                                probe_rows(libs[name], ntiles, dev), ms,
+                                ntiles * ts * ts // b1.BAND_PIXELS)
+                        if not held:
+                            continue
+                        if tag not in base:
+                            base[tag] = [o.clone() for o in out]
+                            hold_to_plain(tag, out, plain_of(fn)(*a, **kw))
+                        same &= all(torch.equal(x, y)
+                                    for x, y in zip(out, base[tag]))
+                        again &= all(torch.equal(x, y)
+                                     for x, y in zip(out, fn(*a, **kw)))
+                    note = (f"; bit-equal to base in rgb, T, ckpt, nproc "
+                            f"{same}, to its own second launch {again}"
+                            if held else " (timing only)")
+                    cs.log(f"[ablate] tile {ts} round {rnd} {name}: "
+                           + ", ".join(times) + note)
+                    if not (same and again):
+                        raise AssertionError(
+                            f"{name} changed the function at tile {ts}")
+            del runs, base
+            torch.cuda.empty_cache()
         build._LIBS.pop("tile_raster_fwd")
     return 0
 

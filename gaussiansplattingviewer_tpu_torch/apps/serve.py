@@ -7,7 +7,8 @@ A localhost HTTP server that renders frames on demand: ``/`` is the page
 Usage:
   python -m gaussiansplattingviewer_tpu_torch.apps.serve \
       [--gs-model scene_dir | --random-scene N] \
-      [--width 960 --height 540] [--port 8008] [--device cuda]
+      [--width 960 --height 540] [--port 8008] [--device cuda] \
+      [--backend {kernel,oracle}]
 
 ``--gs-model`` takes a scene dir or a .ply, loaded by the viewer's
 ``load_scene`` (apps/viewer.py); without it the 4-splat test scene.
@@ -99,11 +100,14 @@ refresh();
 
 
 class ViewerState:
-    """Scene, orbit centre/radius, base config and device of a server.
-    Renders are serialized by a lock (one frame at a time on the card)."""
+    """Scene, orbit centre/radius, base config, device and render backend
+    of a server.  Renders are serialized by a lock (one frame at a time on
+    the card)."""
 
-    def __init__(self, scene, center, radius, cfg: RenderConfig, device=None):
+    def __init__(self, scene, center, radius, cfg: RenderConfig, device=None,
+                 backend="kernel"):
         self.device = resolve_device(device)
+        self.backend = backend
         self.scene = scene.to(self.device)
         self.center = np.asarray(center, np.float64)
         self.radius = float(radius)
@@ -132,7 +136,8 @@ class ViewerState:
         with self.lock:
             img = render(
                 self.scene, view, cam.get_project_matrix(),
-                eye.astype(np.float32), cfg, device=self.device,
+                eye.astype(np.float32), cfg, backend=self.backend,
+                device=self.device,
             ).cpu().numpy()
         return encode_rgb8(img)
 
@@ -208,7 +213,8 @@ def build_state(args) -> ViewerState:
     scene = scene.pad_to_multiple(256)
     extent = float(np.linalg.norm(np.asarray(bbox[1]) - np.asarray(bbox[0])))
     cfg = RenderConfig(width=args.width, height=args.height)
-    return ViewerState(scene, center, max(extent, 1.0), cfg, args.device)
+    return ViewerState(scene, center, max(extent, 1.0), cfg, args.device,
+                       args.backend)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -223,6 +229,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "executors)")
+    ap.add_argument("--backend", choices=["kernel", "oracle"],
+                    default="kernel",
+                    help="render() backend: the tile kernels or the exact "
+                         "oracle")
     return ap
 
 
@@ -232,7 +242,7 @@ def main(argv=None) -> int:
     server = ThreadingHTTPServer(("127.0.0.1", args.port), make_handler(state))
     print(
         f"serving {len(state.scene)} gaussians at http://127.0.0.1:{args.port}"
-        f" on {state.device}",
+        f" on {state.device} (backend={state.backend})",
         file=sys.stderr,
     )
     try:

@@ -13,7 +13,8 @@
 // fused backward B5, takes 16x16 only: JAX's fused path runs only through
 // Pallas (ops/raster_tiles.py:68), whose train kernel lays its checkpoint
 // out for 256 pixels (ops/pallas/tile_raster_fwd.py:334).  The text below
-// describes the 16x16 tile; Geo<TILE> gives the other sizes' geometry.
+// describes the 16x16 tile; Geo<TILE> gives the other sizes' geometry, and
+// "Other tile sizes" below what differs there.
 //
 // Replaces: gaussiansplattingviewer_tpu/ops/pallas/tile_raster_fwd.py,
 // _fwd_kernel (seeded=False) as launched by rasterize_binned_pallas_soa
@@ -76,8 +77,8 @@
 //     4w .. 4w+3, lane l holds pixels p = 64w + l and p + 32 (tile rows
 //     4w + l/16 and 4w + 2 + l/16), which share the column px.  A warp's
 //     band is 64 pixels at every size: all 8 rows of an 8x8 tile (one
-//     warp, 32 threads) or 2 rows of a 32x32 tile (16 warps, 512 threads,
-//     16 cull bits per row).  So dx,
+//     warp, 32 threads) or an 8x8 square of a 32x32 tile (16 warps, 512
+//     threads, 16 cull bits per row).  So dx,
 //     A dx dx, B dx and the |dx| <= rx test are computed once per row for
 //     both (power is -0.5 (A dx dx + C dy dy) - B dx dy, evaluated left to
 //     right, so (A dx) dx and B dx are its own subterms), and one staged
@@ -109,12 +110,30 @@
 // Resources (sm_90a), 16x16: 12,544 bytes of static shared memory per CTA
 // (the window as 256 x 48-byte rows, 12 KB, and the 256 cull masks);
 // launch bounds of 8 CTAs per SM (32 warps, at most 64 registers, no
-// spills).  8x8 and 32x32 ask for the same 32 warps per SM (32 and 2 CTAs)
-// and keep the window; at 8x8 shared memory holds 17 one-warp CTAs per SM.
-// 32x32's masks are 16-bit (12,800 bytes).
-// gsv_tile_raster_fwd_occupancy reports the registers, spills, shared
-// memory and CTAs per SM as built.  B2 adds two coalesced 128-byte
+// spills).  8x8 and 32x32 ask for the same 32 warps per SM (32 and 2
+// CTAs).  gsv_tile_raster_fwd_occupancy reports the registers, spills,
+// shared memory and CTAs per SM as built.  B2 adds two coalesced 128-byte
 // checkpoint stores per warp and window and one int per tile.
+//
+// Other tile sizes (fwd_ablation.py --tiles, PERF.md):
+//   * 32x32, 16 warps.  A 32x2 strip of tile rows is reached by the rect
+//     of every small splat that crosses its two rows, so the bands are 8x8
+//     squares (pixel_of: lane l of warp w holds column l % 8 of square w,
+//     rows l / 8 and l / 8 + 4, still one column per thread), culled by
+//     their 8 columns and 8 rows as the backward culls them: on the 1M
+//     frame the cull keeps 0.24 of the blended (row, band) pairs against
+//     0.35 for strips.  The cull is exact with any band shape and each
+//     pixel's operations and row order are unchanged, so every output is
+//     the strips' bit for bit; only the stores and checkpoints are indexed
+//     by the square pixel.  12,800 bytes (16-bit masks), 2 CTAs per SM.
+//   * 8x8, one warp per CTA.  Shared memory bounds the CTAs per SM, and a
+//     one-warp CTA waits on its own latencies: the 12,544-byte window held
+//     17 per SM.  So one 128-row block of the window is staged at a time
+//     (6,272 bytes, 32 CTAs per SM, the SM's limit), as the backward does
+//     at 8x8; a block without rows of the tile is skipped.  The early stop
+//     is still tested once per 256-row window, before it, and B2 writes
+//     each block's exiting T as before: the results are the window's bit
+//     for bit.
 //
 // Built with -fmad=false and without --use_fast_math (see
 // ops/kernels/build.py): the discrete thresholds then see exactly the
@@ -140,18 +159,29 @@ struct Geo {
   static constexpr int kTile = TILE;
   static constexpr int kPixels = kTile * kTile;
   static constexpr int kThreads = kPixels / kPix;  // 32, 128, 512
-  static constexpr int kWarps = kThreads / 32;     // one band of rows each
+  static constexpr int kWarps = kThreads / 32;     // one band each
   static constexpr int kBandRows = kTile / kWarps;  // 8, 4, 2 rows
   static constexpr int kMinCtas = 32 / kWarps;     // 32 warps per SM
-  // staging passes over a window's kChunk rows (a thread stages rows tid,
+  // a warp's band: kBandRows whole tile rows, or at 32x32 an 8x8 square
+  // (pixel_of), which the rects of small splats reach far less often
+  // than a 32x2 strip (the backward's bands there too)
+  static constexpr bool kSquare = TILE == 32;
+  // rows staged at once: a 256-row window, or at 8x8 one 128-row block,
+  // so that 32 one-warp CTAs fit an SM's shared memory, not 17
+  static constexpr int kStageRows = TILE == 8 ? kAlign : kChunk;
+  // staging passes over kStageRows rows (a thread stages rows tid,
   // tid + kThreads, ...; at 32x32 half the threads stage none)
-  static constexpr int kStage = (kChunk + kThreads - 1) / kThreads;
+  static constexpr int kStage = (kStageRows + kThreads - 1) / kThreads;
   // one cull bit per band (warp)
   using Mask = typename std::conditional<(kWarps <= 8), unsigned char,
                                          unsigned short>::type;
   static_assert(kWarps * 32 * kPix == kPixels && kBandRows * kWarps == kTile,
                 "a warp's pixels must be whole tile rows");
   static_assert(kWarps <= 16, "16 bands at most");
+  static_assert(!kSquare || (kTile / 8) * (kTile / 8) == kWarps,
+                "one 8x8 square per warp");
+  static_assert(kStageRows == kChunk || kStage * kThreads == kStageRows,
+                "a staged block takes whole passes");
 };
 
 // table row indices (ops/binning.py column map)
@@ -162,8 +192,9 @@ enum Mode { kGauss = 0, kBillboard = 1, kFlatBall = 2, kGaussBall = 3 };
 
 template <int TILE>
 struct Smem {
-  float4 rows[kChunk * 3];                 // row j: records 3j (shape) ..
-  typename Geo<TILE>::Mask mask[kChunk];   // bands each row's rect reaches
+  using G = Geo<TILE>;
+  float4 rows[G::kStageRows * 3];        // row j: records 3j (shape) ..
+  typename G::Mask mask[G::kStageRows];  // bands each row's rect reaches
 };
 
 struct Params {
@@ -190,8 +221,16 @@ struct Colour {
 };
 
 // Pixel i (row-major in the tile) of the thread (warp, lane): warp w holds
-// the band of tile rows kBandRows w .., lane l column l % TILE.
+// the band of tile rows kBandRows w .., lane l column l % TILE; at 32x32
+// the 8x8 square w (squares row-major), lane l column l % 8 of it, rows
+// l / 8 and l / 8 + 4 (the backward's square_pixel).
+template <int TILE>
 __device__ __forceinline__ int pixel_of(int warp, int lane, int i) {
+  if constexpr (Geo<TILE>::kSquare) {
+    constexpr int kSq = TILE / 8;  // squares per tile row
+    return ((warp / kSq) * 8 + i * 4 + lane / 8) * TILE + (warp % kSq) * 8 +
+           lane % 8;
+  }
   return warp * 32 * kPix + i * 32 + lane;
 }
 
@@ -202,6 +241,24 @@ __device__ __forceinline__ unsigned band_mask(float cx, float cy, float rx,
                                               float ry, float tx, float ty) {
   constexpr int kTile = TILE, kWarps = Geo<TILE>::kWarps;
   constexpr int kBandRows = Geo<TILE>::kBandRows;
+  if constexpr (Geo<TILE>::kSquare) {
+    // square w is the product of column group w % kSq and row group w / kSq
+    constexpr int kSq = kTile / 8;
+    unsigned xg = 0, yg = 0;  // bit g: the rect reaches group g
+#pragma unroll
+    for (int k = 0; k < kTile; ++k) {
+      const float px = tx * kTile + static_cast<float>(k) + 0.5f;
+      const float py = ty * kTile + static_cast<float>(k) + 0.5f;
+      xg |= fabsf(px - cx) <= rx ? 1u << (k / 8) : 0u;
+      yg |= fabsf(py - cy) <= ry ? 1u << (k / 8) : 0u;
+    }
+    unsigned m = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      m |= ((xg >> (w % kSq)) & (yg >> (w / kSq)) & 1u) << w;
+    }
+    return m;
+  }
   bool x_hit = false;
 #pragma unroll
   for (int k = 0; k < kTile; ++k) {
@@ -221,6 +278,40 @@ __device__ __forceinline__ unsigned band_mask(float cx, float cy, float rx,
     m |= (x_hit && y_hit) ? 1u << w : 0u;
   }
   return m;
+}
+
+// Stage the kStageRows table columns from col0 into shared memory (row j
+// of the stage is column col0 + j; a thread stages rows tid, tid +
+// kThreads, ...; at 32x32 half the threads stage none), each row with its
+// band mask; columns outside the tile's [start, end) get mask 0.
+template <int TILE>
+__device__ __forceinline__ void stage_rows(Smem<TILE>& sm,
+                                           const float* __restrict__ table,
+                                           int64_t dpad, int col0, int start,
+                                           int end, int tid, float tx,
+                                           float ty) {
+  using G = Geo<TILE>;
+#pragma unroll
+  for (int h = 0; h < G::kStage; ++h) {
+    const int j = tid + h * G::kThreads;
+    if constexpr (G::kThreads > G::kStageRows) {
+      if (j >= G::kStageRows) break;
+    }
+    const int col = col0 + j;
+    unsigned m = 0;
+    if (col >= start && col < end) {
+      float v[kAttrs];
+#pragma unroll
+      for (int a = 0; a < kAttrs; ++a) {
+        v[a] = table[static_cast<int64_t>(a) * dpad + col];
+      }
+      sm.rows[j * 3 + 0] = make_float4(v[kCx], v[kCy], v[kA], v[kB]);
+      sm.rows[j * 3 + 1] = make_float4(v[kC], v[kOpacity], v[kRx], v[kRy]);
+      sm.rows[j * 3 + 2] = make_float4(v[kR], v[kG], v[kBch], 0.0f);
+      m = band_mask<TILE>(v[kCx], v[kCy], v[kRx], v[kRy], tx, ty);
+    }
+    sm.mask[j] = static_cast<typename G::Mask>(m);
+  }
 }
 
 // Composite one staged row into the thread's pixels (px, py[i]).  Per
@@ -318,11 +409,12 @@ __global__ void __launch_bounds__(Geo<TILE>::kThreads, Geo<TILE>::kMinCtas)
   const float ty = static_cast<float>((t / tiles_x) * row_stride + row_offset);
   // the thread's pixels share one column
   const float px =
-      tx * kTile + static_cast<float>(pixel_of(warp, lane, 0) % kTile) + 0.5f;
+      tx * kTile + static_cast<float>(pixel_of<TILE>(warp, lane, 0) % kTile) +
+      0.5f;
   float py[kPix], T[kPix], acc[kPix][3];
 #pragma unroll
   for (int i = 0; i < kPix; ++i) {
-    const int p = pixel_of(warp, lane, i);
+    const int p = pixel_of<TILE>(warp, lane, i);
     py[i] = ty * kTile + static_cast<float>(p / kTile) + 0.5f;
     T[i] = SEEDED ? t_init[static_cast<int64_t>(t) * kPixels + p] : 1.0f;
     acc[i][0] = acc[i][1] = acc[i][2] = 0.0f;
@@ -332,7 +424,7 @@ __global__ void __launch_bounds__(Geo<TILE>::kThreads, Geo<TILE>::kMinCtas)
   auto put_ckpt = [&](int c) {
 #pragma unroll
     for (int i = 0; i < kPix; ++i) {
-      const int p = pixel_of(warp, lane, i);
+      const int p = pixel_of<TILE>(warp, lane, i);
       ckpt[static_cast<int64_t>(p / kAlign) * dpad + c + p % kAlign] = T[i];
     }
   };
@@ -345,47 +437,52 @@ __global__ void __launch_bounds__(Geo<TILE>::kThreads, Geo<TILE>::kMinCtas)
     // tile-wide stop; also the barrier before the window is overwritten
     if (!__syncthreads_or(live)) break;
     const int w0 = base + ci * kChunk;
-#pragma unroll
-    for (int h = 0; h < G::kStage; ++h) {
-      const int j = tid + h * G::kThreads;
-      if constexpr (G::kThreads > kChunk) {
-        if (j >= kChunk) break;
+    if constexpr (G::kStageRows == kChunk) {
+      stage_rows<TILE>(sm, table, dpad, w0, start, end, tid, tx, ty);
+      __syncthreads();
+      const int lo = max(start - w0, 0);
+      const int hi = min(end - w0, kChunk);
+      if (!TRAIN) {
+        blend_rows<TILE, MODE>(sm, lo, hi, warp, lane, px, py, prm, T, acc);
+      } else {
+        // the window's two 128-row blocks; each block's exiting T is the
+        // next block's entering checkpoint, written only where that block
+        // holds live rows of this tile (see the header on write races)
+        const int mid = min(max(lo, kAlign), hi);
+        blend_rows<TILE, MODE>(sm, lo, mid, warp, lane, px, py, prm, T,
+                               acc);
+        if (w0 + kAlign < end) put_ckpt(w0 + kAlign);
+        blend_rows<TILE, MODE>(sm, mid, hi, warp, lane, px, py, prm, T,
+                               acc);
+        if (w0 + kChunk < end) put_ckpt(w0 + kChunk);
       }
-      const int col = w0 + j;
-      unsigned m = 0;
-      if (col >= start && col < end) {
-        float v[kAttrs];
-#pragma unroll
-        for (int a = 0; a < kAttrs; ++a) {
-          v[a] = table[static_cast<int64_t>(a) * dpad + col];
-        }
-        sm.rows[j * 3 + 0] = make_float4(v[kCx], v[kCy], v[kA], v[kB]);
-        sm.rows[j * 3 + 1] = make_float4(v[kC], v[kOpacity], v[kRx], v[kRy]);
-        sm.rows[j * 3 + 2] = make_float4(v[kR], v[kG], v[kBch], 0.0f);
-        m = band_mask<TILE>(v[kCx], v[kCy], v[kRx], v[kRy], tx, ty);
-      }
-      sm.mask[j] = static_cast<typename G::Mask>(m);
-    }
-    __syncthreads();
-    const int lo = max(start - w0, 0);
-    const int hi = min(end - w0, kChunk);
-    if (!TRAIN) {
-      blend_rows<TILE, MODE>(sm, lo, hi, warp, lane, px, py, prm, T, acc);
     } else {
-      // the window's two 128-row blocks; each block's exiting T is the
-      // next block's entering checkpoint, written only where that block
-      // holds live rows of this tile (see the header on write races)
-      const int mid = min(max(lo, kAlign), hi);
-      blend_rows<TILE, MODE>(sm, lo, mid, warp, lane, px, py, prm, T, acc);
-      if (w0 + kAlign < end) put_ckpt(w0 + kAlign);
-      blend_rows<TILE, MODE>(sm, mid, hi, warp, lane, px, py, prm, T, acc);
-      if (w0 + kChunk < end) put_ckpt(w0 + kChunk);
+      // 8x8, one warp: the window's two 128-row blocks staged and blended
+      // one at a time; a block without live rows of the tile is neither
+      // staged nor walked.  The rows, their order and the checkpoints are
+      // the window's.
+      const int lo = max(start - w0, 0);
+      const int hi = min(end - w0, kChunk);
+#pragma unroll
+      for (int b0 = 0; b0 < kChunk; b0 += kAlign) {
+        const int jlo = max(lo, b0), jhi = min(hi, b0 + kAlign);
+        if (jlo < jhi) {
+          __syncwarp();  // the warp is done with the previous block
+          stage_rows<TILE>(sm, table, dpad, w0 + b0, start, end, tid, tx,
+                           ty);
+          __syncwarp();
+          blend_rows<TILE, MODE>(sm, jlo - b0, jhi - b0, warp, lane, px, py,
+                                 prm, T, acc);
+        }
+        // the block's exiting T, as above
+        if (TRAIN && w0 + b0 + kAlign < end) put_ckpt(w0 + b0 + kAlign);
+      }
     }
   }
 #pragma unroll
   for (int i = 0; i < kPix; ++i) {
     const int64_t o =
-        static_cast<int64_t>(t) * kPixels + pixel_of(warp, lane, i);
+        static_cast<int64_t>(t) * kPixels + pixel_of<TILE>(warp, lane, i);
     out_rgb[o * 3 + 0] = acc[i][0];
     out_rgb[o * 3 + 1] = acc[i][1];
     out_rgb[o * 3 + 2] = acc[i][2];

@@ -11,7 +11,7 @@ per-tile compact offsets with the splat id beside them).  The CUDA source
 to front from the forward's checkpoints), the fixed-order reduction, the
 exact warp cull, what bounds it on an H100 (FP32 issue) and what its
 design does about that.  ``warp_cull_plain`` (in ``tile_raster_fwd.py``,
-whose kernels cull the same way; B3's bands at 32x32 are 8x8 squares,
+whose kernels cull the same way; the bands at 32x32 are 8x8 squares,
 ``square_bands``) is the plain mirror of the cull, ``kernel_occupancy``
 reports the kernels' resources as built.
 
@@ -35,8 +35,8 @@ import torch
 from gaussiansplattingviewer_tpu_torch.config import RenderConfig, RenderMode
 from gaussiansplattingviewer_tpu_torch.ops import binning
 from gaussiansplattingviewer_tpu_torch.ops.kernels import build
-# BANDS and warp_cull_plain are re-exported: the backward culls as the
-# forward does
+# BANDS, square_bands and warp_cull_plain are re-exported: the backward
+# culls as the forward does
 from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
     BANDS,
     MODE_CODE,
@@ -45,6 +45,7 @@ from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
     check_inputs,
     ckpt_rows,
     fragments,
+    square_bands,
     stream_of,
     tile_pixel_grid,
     warp_cull_pixels,
@@ -54,13 +55,6 @@ from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-
-
-def square_bands(tile_size: int) -> bool:
-    """Whether B3's warp bands are 8x8 squares at ``tile_size`` (32x32,
-    where the forward's 32x2 strips keep 1.6x the fragments), not the
-    forward's ``band_rows`` rows."""
-    return tile_size == 32
 
 
 def _check_residuals(table, nproc, ckpt, g_rgb, g_trans, out_trans,

@@ -13,10 +13,12 @@ template in ``csrc/tile_raster_fwd.cu``, whose
 header says what bounds them on an H100 (instruction issue: ~175 FP32
 operations per table byte), what the design does about that (one CTA per
 tile, two pixels of one column per thread, rows broadcast from shared
-memory as 16-byte records, an exact per-warp cull) and why B2's checkpoint
-writes cannot race.  ``warp_cull_plain`` is the plain mirror of the cull,
-which the backward kernels (``tile_raster_bwd.py``) share;
-``kernel_occupancy`` reports the kernels' resources as built.
+memory as 16-byte records, an exact per-warp cull; at 32x32 the bands are
+8x8 squares, at 8x8 one 128-row block is staged at a time) and why B2's
+checkpoint writes cannot race.  ``warp_cull_plain`` is the plain mirror of
+the cull (``square_bands`` says where its bands are squares), which the
+backward kernels (``tile_raster_bwd.py``) share; ``kernel_occupancy``
+reports the kernels' resources as built.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``, same signature and semantics) for CPU
@@ -59,10 +61,11 @@ SCAN_BLOCK = binning.SEGMENT_ALIGN
 CUDA_TILES = (8, 16, 32)
 FUSED_TRAIN_TILE = 16
 # a warp's footprint: 32 lanes x 2 pixels; in a 16x16 tile, band w is tile
-# rows 4w .. 4w+3, i.e. pixels 64w .. 64w+63 (band_rows gives other sizes)
+# rows 4w .. 4w+3, i.e. pixels 64w .. 64w+63 (band_rows gives other sizes,
+# square_bands where they are squares)
 BAND_PIXELS = 64
 BANDS = 16 * 16 // BAND_PIXELS  # of a 16x16 tile
-SQUARE = 8  # edge of a square band (the backward's at 32x32)
+SQUARE = 8  # edge of a square band (the kernels' at 32x32)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -374,6 +377,14 @@ def fragments(rows, live, px, py, cfg: RenderConfig):
     return dx, dy, gauss, alpha, keep & (raw < cfg.alpha_clamp)
 
 
+def square_bands(tile_size: int) -> bool:
+    """Whether the kernels' warp bands (B1, B2, B4 and B3 alike) are 8x8
+    squares at ``tile_size``: at 32x32, where a 32x2 strip of tile rows
+    keeps 1.5x the (row, band) pairs on the 1M frame; elsewhere they are
+    ``band_rows`` whole tile rows."""
+    return tile_size == 32
+
+
 def band_rows(ts: int) -> int:
     """Tile rows of one warp band: BAND_PIXELS // ts rows (4 of a 16x16
     tile), or the whole tile where that does not divide it evenly."""
@@ -386,7 +397,8 @@ def warp_cull_plain(rows, live, px, py, square=False):
     tiles' rows (11, A, R), live (A, R), and their pixel centres px / py
     (A, P), P = ts * ts; a band is ``band_rows(ts)`` tile rows (4 bands of
     4 rows in the kernels' 16x16 tile), or with ``square`` an 8x8 square
-    (the backward's bands at 32x32, row-major: ``band_of_pixel``).
+    (the kernels' bands at 32x32, ``square_bands``; row-major:
+    ``band_of_pixel``).
 
     The kernels' own rect test, fabsf(px - cx) <= rx and fabsf(py - cy) <=
     ry, at each of the tile's ts column centres and each band's row
@@ -438,15 +450,17 @@ def _blend_window(rows, live, px, py, rgb, trans, cfg: RenderConfig,
     a sequential loop on both CPU and CUDA), so T matches the kernel's
     per-thread loop bit for bit; only the rgb sums are taken in another
     order.  With ``cull`` the alpha and weight of every fragment outside
-    the pairs ``warp_cull_plain`` keeps are zeroed, as the kernels skip
-    them.  Returns (rgb, exit T, T after the first ``n_first`` (A,) rows
-    or None)."""
+    the pairs ``warp_cull_plain`` keeps (with the kernels' bands,
+    ``square_bands``) are zeroed, as the kernels skip them.  Returns (rgb,
+    exit T, T after the first ``n_first`` (A,) rows or None)."""
     b = binning
     col = lambda c: rows[c][:, :, None]  # noqa: E731  (A, R, 1)
     _, _, gauss, alpha, _ = fragments(rows, live, px, py, cfg)
     if cull:
         zero = torch.zeros((), dtype=alpha.dtype, device=alpha.device)
-        kept = warp_cull_pixels(rows, live, px, py)
+        kept = warp_cull_pixels(
+            rows, live, px, py,
+            square_bands(int(round(px.shape[1] ** 0.5))))
         alpha = torch.where(kept, alpha, zero)
     seq = torch.cumprod(torch.cat([trans[:, None, :], 1.0 - alpha], dim=1),
                         dim=1)

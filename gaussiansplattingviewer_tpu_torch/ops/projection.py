@@ -20,6 +20,7 @@ import torch
 from gaussiansplattingviewer_tpu_torch.config import RenderConfig, RenderMode
 from gaussiansplattingviewer_tpu_torch.models.gaussians import GaussianData
 from gaussiansplattingviewer_tpu_torch.ops.sh import eval_sh_color
+from gaussiansplattingviewer_tpu_torch.utils.transforms import quat_to_rotmat
 
 _PROJ_FIELDS = ("mean2d", "depth", "conic", "radius", "color", "opacity",
                 "valid")
@@ -54,6 +55,16 @@ class ProjectedSplats:
             k: torch.from_numpy(np.array(arrays[k])).to(device)
             for k in _PROJ_FIELDS
         })
+
+
+def compute_cov3d(scale: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """3D covariance Sigma = R diag(s^2) R^T, (N, 3, 3), for (N, 3) scales
+    and (N, 4) wxyz quaternions: the JAX package's ``compute_cov3d``, in its
+    expression order (the rotation, the squared scales, one contraction over
+    k of R_ik s2_k R_jk)."""
+    R = quat_to_rotmat(rot)  # (N, 3, 3)
+    s2 = scale * scale  # (N, 3)
+    return torch.einsum("nik,nk,njk->nij", R, s2, R)
 
 
 def compute_cov3d_packed(scale: torch.Tensor, rot: torch.Tensor):

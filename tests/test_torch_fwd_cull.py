@@ -1,15 +1,18 @@
 """PyTorch port: the exact warp cull of kernels B1, B2 and B4, through the
-plain forward's ``cull`` option on the CPU.
+plain forward's ``cull`` option on the CPU, at tile sizes 8, 16 and 32.
 
 The kernels skip a row for a warp when the row's 3-sigma rect misses the
-warp's 16x4-pixel band (``warp_cull_plain``).  Here the plain forward with
-the culled fragments skipped gives rgb, T, nproc and the checkpoints bit
-for bit as without the cull: for B1 (no checkpoints), B2 (checkpoints) and
-B4 (a seeded entering T, some tiles already saturated, with checkpoints),
-in every render mode, on an opaque scene that stops early, on an
-interleaved shard (tile rows 1, 3, ...), and on scenes of large splats
-(the cull keeps nearly every pair) and of tiny ones (it drops most).
-Scenes are projected splats made from a numpy seed.
+warp's band of 64 pixels (``warp_cull_plain``): all of an 8x8 tile, 16x4
+at 16 (``band_rows``) and an 8x8 square at 32 (``square_bands``).  Here
+the plain forward with the culled fragments skipped gives rgb, T, nproc
+and the checkpoints bit for bit as without the cull: for B1 (no
+checkpoints), B2 (checkpoints) and B4 (a seeded entering T, some tiles
+already saturated, with checkpoints), in every render mode, on an opaque
+scene that stops early, on an interleaved shard (tile rows 1, 3, ...),
+and on scenes of large splats (the cull keeps nearly every pair) and of
+tiny ones (it drops most).  The mirror's bands are the pixel groups of
+``band_of_pixel``: its separable test equals the rect test at every pixel
+of a band.  Scenes are projected splats made from a numpy seed.
 """
 
 import numpy as np
@@ -23,7 +26,9 @@ from gaussiansplattingviewer_tpu_torch.ops.projection import ProjectedSplats
 from torch_port_util import synthetic_splats
 
 W, H = 96, 64
-SHARD = dict(row_offset=1, local_rows=2, row_stride=2)
+# odd tile rows: 1, 3 of the 4 at tile size 16 (half the rows at any size)
+SHARD = dict(row_offset=1, row_stride=2)
+TILES = [8, 16, 32]
 
 
 def _scene(name):
@@ -40,12 +45,12 @@ def _scene(name):
     return synthetic_splats(800, W, H, seed=35, scale=(0.05, 0.2))
 
 
-def _binned(mode, scene, band):
-    # every splat of the large scene reaches all 24 tiles
+def _binned(mode, scene, band, ts=16):
+    # every splat of the large scene reaches every tile (96 at tile 8)
     cfg = RenderConfig(width=W, height=H, mode=RenderMode[mode],
-                       table_budget_factor=32)
+                       tile_size=ts, table_budget_rows=1 << 17)
     row_offset = band.get("row_offset", 0)
-    local_rows = band.get("local_rows", cfg.tiles_y)
+    local_rows = cfg.tiles_y // 2 if band else cfg.tiles_y
     row_stride = band.get("row_stride", 1)
     bs = binning.bin_splats(ProjectedSplats.from_numpy(**_scene(scene)), cfg,
                             row_offset, local_rows, row_stride)
@@ -58,7 +63,7 @@ def _forward(kernel, cfg, bs, px, py, cull):
     """The plain B1, B2 or B4 (train variant) on one binned table:
     [rgb, T, nproc] and, for B2 and B4, the checkpoint buffer."""
     ckpt = None if kernel == "B1" else torch.zeros(
-        (256 // kf.SCAN_BLOCK, bs.table.shape[1]))
+        (kf.ckpt_rows(px.shape[1]), bs.table.shape[1]))
     t_init = None
     if kernel == "B4":
         rng = np.random.default_rng(36)
@@ -71,14 +76,20 @@ def _forward(kernel, cfg, bs, px, py, cull):
     return list(out) + ([ckpt] if ckpt is not None else [])
 
 
-def _kept_share(bs, px, py):
+def _rows(bs):
+    """(rows (11, A, R), live (A, R)) of every tile's list."""
     counts = bs.tile_counts.to(torch.int64)
     r = torch.arange(int(counts.max()))
     live = r[None, :] < counts[:, None]
     start = bs.tile_starts[:-1].to(torch.int64)[:, None]
-    rows = bs.table[: binning.COL_RY + 1, torch.where(live, start + r, start)]
-    kept = kf.warp_cull_plain(rows, live, px, py)
-    return float(kept.sum()) / (float(live.sum()) * kf.BANDS)
+    return (bs.table[: binning.COL_RY + 1,
+                     torch.where(live, start + r, start)], live)
+
+
+def _kept_share(bs, px, py, ts):
+    rows, live = _rows(bs)
+    kept = kf.warp_cull_plain(rows, live, px, py, kf.square_bands(ts))
+    return float(kept.sum()) / (float(live.sum()) * kept.shape[2])
 
 
 CASES = [(m.name, "mix", {}) for m in RenderMode] + [
@@ -88,10 +99,11 @@ IDS = [m.name.lower() for m in RenderMode] + [
     "opaque", "sh3_shard", "large", "tiny"]
 
 
+@pytest.mark.parametrize("ts", TILES)
 @pytest.mark.parametrize("kernel", ["B1", "B2", "B4"])
 @pytest.mark.parametrize("mode,scene,band", CASES, ids=IDS)
-def test_culled_forward_is_bit_equal(kernel, mode, scene, band):
-    cfg, bs, px, py = _binned(mode, scene, band)
+def test_culled_forward_is_bit_equal(kernel, mode, scene, band, ts):
+    cfg, bs, px, py = _binned(mode, scene, band, ts)
     full = _forward(kernel, cfg, bs, px, py, cull=False)
     culled = _forward(kernel, cfg, bs, px, py, cull=True)
     assert float(full[0].abs().max()) > 0
@@ -105,10 +117,34 @@ def test_culled_forward_is_bit_equal(kernel, mode, scene, band):
 @pytest.mark.parametrize("scene,lo,hi", [("large", 0.9, 1.0),
                                          ("tiny", 0.0, 0.5)])
 def test_cull_share_of_scene(scene, lo, hi):
-    """The large scene keeps nearly every (row, band) pair, the tiny one
-    drops most of them."""
+    """At tile 16 the large scene keeps nearly every (row, band) pair, the
+    tiny one drops most of them."""
     _, bs, px, py = _binned("SH3", scene, {})
-    assert lo <= _kept_share(bs, px, py) <= hi
+    assert lo <= _kept_share(bs, px, py, 16) <= hi
+
+
+@pytest.mark.parametrize("ts", TILES)
+def test_mirror_bands_are_pixel_groups(ts):
+    """The mirror's (row, band) pairs are the rect test at the pixels of
+    each band of ``band_of_pixel`` (8x8 squares at 32), 64 pixels each,
+    and they cover every fragment with alpha > 0."""
+    cfg, bs, px, py = _binned("SH3", "mix", {}, ts)
+    rows, live = _rows(bs)
+    square = kf.square_bands(ts)
+    assert square == (ts == 32)
+    kept = kf.warp_cull_plain(rows, live, px, py, square)
+    band = kf.band_of_pixel(ts, square)
+    assert torch.equal(torch.bincount(band),
+                       torch.full((ts * ts // kf.BAND_PIXELS,),
+                                  kf.BAND_PIXELS))
+    dx, dy, _, alpha, _ = kf.fragments(rows, live, px, py, cfg)
+    in_rect = (dx.abs() <= rows[binning.COL_RX][:, :, None]) \
+        & (dy.abs() <= rows[binning.COL_RY][:, :, None]) & live[:, :, None]
+    assert torch.equal(kept, torch.stack(
+        [in_rect[:, :, band == w].any(2) for w in range(kept.shape[2])], 2))
+    assert torch.equal(kf.warp_cull_pixels(rows, live, px, py, square),
+                       kept[:, :, band])
+    assert not bool(((alpha > 0) & ~kept[:, :, band]).any())
 
 
 def test_opaque_scene_stops_early():

@@ -481,6 +481,11 @@ def test_tile_raster_fwd_resources(train, seeded):
         assert occ["ctas_per_sm"] == 8, occ
 
 
+# the forward's shared memory per CTA and CTAs per SM at tile 8 (one
+# 128-row block staged at a time, one-warp CTAs up to the SM's 32) and 32
+# (the 256-row window, 16-bit masks; 2 CTAs of 512 threads)
+FWD_SMEM = {8: 6272, 32: 12800}
+FWD_CTAS = {8: 32, 32: 2}
 # the backward's shared memory per CTA and CTAs per SM by tile size
 # (csrc/tile_raster_bwd.cu): 16 warps per SM at 16 and 32 (two band-sum
 # buffers at 32), shared memory holding 14 one-warp CTAs at 8 (128-row
@@ -537,7 +542,8 @@ def test_inference_kernels_take_tile_8_and_32(ts, width, height, mode,
         occ = b1.kernel_occupancy(mode, seeded=seeded_flag, tile_size=ts)
         print(ts, mode, seeded_flag, occ)
         assert occ["local_bytes"] == 0, occ
-        assert occ["smem_bytes"] == (12544 if ts == 8 else 12800), occ
+        assert occ["smem_bytes"] == FWD_SMEM[ts], occ
+        assert occ["ctas_per_sm"] == FWD_CTAS[ts], occ
 
 
 @pytest.mark.gpu
@@ -550,7 +556,7 @@ def test_training_kernels_take_tile_8_and_32(ts, width, height, mode,
     there: B2's rgb at 1e-5 * max(1, |plain|), T, nproc and the whole
     ckpt buffer (ceil(P / 128) rows) equal; B3 per table row within
     1e-5 * max|plain row| and bit for bit from run to run; one launch
-    each; no spills but B2's 8 bytes at 32.  At tile 32 the opaque scene stops early at 320x192
+    each; no spills.  At tile 32 the opaque scene stops early at 320x192
     (at 150x90 no 32x32 tile saturates whole)."""
     dev = _card()
     cfg = RenderConfig(width=width, height=height, mode=mode, tile_size=ts)
@@ -588,14 +594,65 @@ def test_training_kernels_take_tile_8_and_32(ts, width, height, mode,
     assert torch.equal(g, b3.tile_raster_bwd(*bwd_args))
     occ = b1.kernel_occupancy(mode, train=True, tile_size=ts)
     print(ts, mode, "B2", occ)
-    # at 32 the checkpoint's 8 rows cost B2 8 spilled bytes in the
-    # gaussian and ball modes under the 64 registers of 2 CTAs per SM
-    assert occ["local_bytes"] <= (8 if ts == 32 else 0), occ
-    assert occ["smem_bytes"] == (12544 if ts == 8 else 12800), occ
+    # no spills at 32 either: the 32x2 strips' checkpoint stores cost B2 8
+    # spilled bytes there, the 8x8 squares' none
+    assert occ["local_bytes"] == 0, occ
+    assert occ["smem_bytes"] == FWD_SMEM[ts], occ
+    assert occ["ctas_per_sm"] == FWD_CTAS[ts], occ
     occ = b3.kernel_occupancy(mode, False, ts)
     print(ts, mode, "B3", occ)
     assert occ["local_bytes"] == 0, occ
     assert occ["smem_bytes"] == BWD_SMEM[ts], occ
+
+
+def _multi_window_table(dev, ts, mode, seed):
+    """A dense, faint scene at 320x192 whose tiles walk several 256-row
+    windows: (binned splats, cfg)."""
+    cfg = RenderConfig(width=320, height=192, mode=mode, tile_size=ts)
+    scene = random_scene(40000, sh_degree=3, seed=seed, extent=1.2,
+                         mean_scale=0.04)
+    scene.opacity.fill_(0.1)  # faint: tiles walk their lists to the end
+    cam = Camera(h=cfg.height, w=cfg.width)
+    cam.fovy = 1.0
+    eye = np.array([0.1, -0.1, 4.0], np.float32)
+    view = tf.look_at(eye, [0, 0, 0], [0, -1, 0])
+    return binning.bin_splats(project(scene.to(dev), view,
+                                      cam.get_project_matrix(), eye, cfg),
+                              cfg), cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [8, 32])
+@pytest.mark.parametrize("mode", [RenderMode.SH3, RenderMode.DEPTH])
+def test_tile_raster_fwd_multi_window_at_tile_8_and_32(ts, mode):
+    """B1 and B2 at tile 8 (128-row blocks staged one at a time) and 32
+    (8x8 square bands) on a dense, faint scene whose tiles walk several
+    256-row windows: rgb within 1e-5 * max(1, |plain|), T, nproc and the
+    whole ckpt buffer equal to the plain version, the same bits from
+    launch to launch, one launch each."""
+    dev = _card()
+    bs, cfg = _multi_window_table(dev, ts, mode, 16)
+    args = (bs.table, bs.tile_starts, bs.tile_counts, 0, cfg)
+    before = (b1.tile_raster_fwd.launches, b1.tile_raster_fwd_train.launches)
+    rgb, trans = b1.tile_raster_fwd(*args)
+    out = b1.tile_raster_fwd_train(*args)
+    torch.cuda.synchronize()
+    assert (b1.tile_raster_fwd.launches,
+            b1.tile_raster_fwd_train.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    nproc = out[3]
+    assert int(nproc.max()) >= 3, "some tile must walk 3 windows or more"
+    prgb, ptrans = b1.tile_raster_fwd_plain(*args)
+    plain = b1.tile_raster_fwd_train_plain(*args)
+    assert float(prgb.max()) > 0.05  # DEPTH's grey disparity reaches ~0.1
+    assert _close(rgb, prgb) and torch.equal(trans, ptrans)
+    assert _close(out[0], plain[0])
+    for got, ref in zip(out[1:], plain[1:]):
+        assert torch.equal(got, ref)
+    assert all(torch.equal(a, b) for a, b in
+               zip((rgb, trans), b1.tile_raster_fwd(*args)))
+    assert all(torch.equal(a, b) for a, b in
+               zip(out, b1.tile_raster_fwd_train(*args)))
 
 
 @pytest.mark.gpu
@@ -607,16 +664,7 @@ def test_tile_raster_bwd_multi_window_at_tile_8_and_32(ts, mode):
     several 256-row windows: per table row within 1e-5 * max|plain row|,
     the same bits from launch to launch, one launch."""
     dev = _card()
-    cfg = RenderConfig(width=320, height=192, mode=mode, tile_size=ts)
-    scene = random_scene(40000, sh_degree=3, seed=14, extent=1.2,
-                         mean_scale=0.04)
-    scene.opacity.fill_(0.1)  # faint: tiles walk their lists to the end
-    cam = Camera(h=cfg.height, w=cfg.width)
-    cam.fovy = 1.0
-    eye = np.array([0.1, -0.1, 4.0], np.float32)
-    view = tf.look_at(eye, [0, 0, 0], [0, -1, 0])
-    bs = binning.bin_splats(project(scene.to(dev), view,
-                                    cam.get_project_matrix(), eye, cfg), cfg)
+    bs, cfg = _multi_window_table(dev, ts, mode, 14)
     args = (bs.table, bs.tile_starts, bs.tile_counts, 0, cfg)
     _, trans, ckpt, nproc = b1.tile_raster_fwd_train(*args)
     assert int(nproc.max()) >= 3, "some tile must walk 3 windows or more"

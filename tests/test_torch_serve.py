@@ -1,4 +1,5 @@
-"""PyTorch port: the serve app answers /info and /render on the CPU."""
+"""PyTorch port: the serve app answers /info and /render on the CPU, and
+renders through the backend ``--backend`` names."""
 
 import json
 import threading
@@ -6,6 +7,7 @@ import urllib.request
 from http.server import ThreadingHTTPServer
 
 import numpy as np
+import pytest
 
 from gaussiansplattingviewer_tpu_torch.apps import serve
 
@@ -43,6 +45,60 @@ def test_serve_info_and_render():
         server.server_close()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+def test_serve_backend_oracle_renders_through_the_oracle(monkeypatch):
+    """``--backend oracle`` answers /render with the PNG of
+    ``render(..., backend="oracle")`` at the same pose, and every render
+    the server makes asks for the oracle."""
+    from gaussiansplattingviewer_tpu_torch.ops.render import render
+    from gaussiansplattingviewer_tpu_torch.utils import transforms as tf
+    from gaussiansplattingviewer_tpu_torch.utils.camera import Camera
+    from gaussiansplattingviewer_tpu_torch.utils.image_io import encode_rgb8
+
+    args = serve.build_parser().parse_args(
+        ["--random-scene", "300", "--width", "96", "--height", "64",
+         "--device", "cpu", "--backend", "oracle"])
+    state = serve.build_state(args)
+    assert state.backend == "oracle"
+    asked = []
+
+    def spy(*a, backend="kernel", **kw):
+        asked.append(backend)
+        return render(*a, backend=backend, **kw)
+
+    monkeypatch.setattr(serve, "render", spy)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(state))
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, ctype, png = _get(port, "/render?yaw=0.3&pitch=0.2&mode=sh3")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    assert status == 200 and ctype == "image/png"
+    assert asked == ["oracle"]
+    # the pose render_frame builds for yaw 0.3, pitch 0.2 at the default
+    # radius, scale 1
+    yaw, pitch = 0.3, 0.2
+    front = np.array([np.cos(pitch) * np.sin(yaw), np.sin(pitch),
+                      np.cos(pitch) * np.cos(yaw)])
+    eye = state.center + state.radius * front
+    view = tf.look_at(eye, state.center, [0, -1, 0])
+    cfg = state.cfg.with_(scale_modifier=1.0)
+    proj = Camera(h=cfg.height, w=cfg.width).get_project_matrix()
+    img = render(state.scene, view, proj, eye.astype(np.float32), cfg,
+                 backend="oracle", device="cpu").numpy()
+    assert png == encode_rgb8(img)
+
+
+def test_serve_rejects_unknown_backend(capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.build_parser().parse_args(["--backend", "pallas"])
+    assert exc.value.code == 2
+    assert "invalid choice" in capsys.readouterr().err
 
 
 def test_raw_png_encoder_roundtrip():

@@ -122,3 +122,88 @@ def test_classic_blend_vjp_matches_jax_xla(ts, width, height, mode, kind,
         np.testing.assert_allclose(got[c], want[c], atol=1e-5 * scale,
                                    rtol=0, err_msg=f"row {c}")
     assert used == (9 if mode == JaxMode.SH3 else 3)
+
+
+def test_early_stop_at_tile_8_against_jax(monkeypatch):
+    """The tile-wide early stop at tile 8 on an opaque scene whose tiles
+    saturate.  The port tests the stop once per 256-row window, as JAX's
+    Pallas kernel does; JAX's XLA executor (its only training route at 8)
+    every 16 rows, so where a tile saturates the two JAX executors differ
+    by up to early_stop_transmittance, and so does the port.
+
+      * early_stop_transmittance = 0: the port's table cotangent against
+        jax.vjp of the XLA executor per table row within 1e-5 * max|g[row]|
+        (grad_fold_bf16 off);
+      * the stop on: the port's forward against JAX's Pallas kernel
+        (interpret mode) within 1e-6, and against the XLA executor within
+        early_stop_transmittance, with a tile stopping before its list
+        ends."""
+    width, height, ts = 96, 64, 8
+    scene = synthetic_splats(3000, width, height, seed=33, scale=(2.0, 6.0),
+                             opacity=(0.95, 0.99))
+    jax_s, _ = both_splats(scene)
+    p = ts * ts
+    stop_cfg = JaxConfig(width=width, height=height, tile_size=ts,
+                         grad_fold_bf16=False, table_budget_rows=1 << 16)
+    binned = jax_bin(jax_s, stop_cfg)
+    assert int(binned.truncated) == 0 and int(binned.overflow) == 0
+    table = torch.from_numpy(np.array(binned.table))
+    starts = torch.from_numpy(np.array(binned.tile_starts))
+    counts = torch.from_numpy(np.array(binned.tile_counts))
+    jargs = (binned.table, binned.tile_starts, binned.tile_counts,
+             jnp.int32(0))
+
+    # the stop on: forwards
+    pc = port_cfg(stop_cfg)
+    with torch.no_grad():
+        rgb, trans = blend.blend_tiles(pc, pc.tiles_y, 1, table, starts,
+                                       counts)
+    _, _, _, nproc = blend.tile_raster_fwd_train(table, starts, counts, 0,
+                                                 pc)
+    s = starts.to(torch.int64)
+    windows = -(-(s[1:] - s[:-1] // 128 * 128) // 256)
+    assert bool((nproc.to(torch.int64) < windows).any())
+    got = (rgb.numpy(), trans.numpy())
+    assert float(got[0].max()) > 0.1
+    pallas = jax_blend(stop_cfg, True, stop_cfg.tiles_y, 1, *jargs)
+    xla = jax_blend(stop_cfg, False, stop_cfg.tiles_y, 1, *jargs)
+    for g, w_pallas, w_xla in zip(got, pallas, xla):
+        np.testing.assert_allclose(g, np.asarray(w_pallas), atol=1e-6,
+                                   rtol=0)
+        np.testing.assert_allclose(
+            g, np.asarray(w_xla),
+            atol=stop_cfg.early_stop_transmittance, rtol=0)
+
+    # the stop off: gradients
+    cfg = JaxConfig(width=width, height=height, tile_size=ts,
+                    grad_fold_bf16=False, table_budget_rows=1 << 16,
+                    early_stop_transmittance=0.0)
+    rng = np.random.default_rng(34)
+    g_rgb = rng.normal(size=(cfg.num_tiles, p, 3)).astype(np.float32)
+    g_t = rng.normal(size=(cfg.num_tiles, p)).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda tb: jax_blend(cfg, False, cfg.tiles_y, 1, tb,
+                             *jargs[1:]), binned.table)
+    (want,) = vjp((jnp.asarray(g_rgb), jnp.asarray(g_t)))
+    want = np.asarray(want)
+    calls = []
+    _spy(monkeypatch, "tile_raster_fwd_train", calls)
+    _spy(monkeypatch, "tile_raster_bwd", calls)
+    leaf = table.clone().requires_grad_(True)
+    pc = port_cfg(cfg)
+    rgb, trans = blend.blend_tiles(pc, pc.tiles_y, 1, leaf, starts, counts)
+    got, = torch.autograd.grad((rgb, trans), leaf,
+                               (torch.from_numpy(g_rgb),
+                                torch.from_numpy(g_t)))
+    assert calls == ["tile_raster_fwd_train", "tile_raster_bwd"]
+    got = got.numpy()
+    used = 0
+    for c in range(16):
+        scale = np.abs(want[c]).max()
+        if scale == 0.0:
+            np.testing.assert_array_equal(got[c], 0.0, err_msg=f"row {c}")
+            continue
+        used += 1
+        np.testing.assert_allclose(got[c], want[c], atol=1e-5 * scale,
+                                   rtol=0, err_msg=f"row {c}")
+    assert used == 9
