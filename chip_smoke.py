@@ -76,6 +76,14 @@ Phases, each fatal on failure:
      sorted variant, 3 served frames (B1 1, B4 1 each), and B4/B5 timed
      alone against their plain versions on a step's own inputs (B5 also
      against its own second launch, bit for bit);
+ 9b. the tile executor (ops/blend.py, plain PyTorch, JAX's XLA executor):
+     the parity check (eval.gradcheck, scripts/tpu_gradcheck.py's port)
+     of the kernel route against it on the same card, its toy case (B1,
+     B2, B3) and its 500k-splat 1920x1080 fused case (B2, B4, B5), within
+     tpu_gradcheck.py's thresholds; the 1M scene at 1920x1080 served once
+     and trained one step through backend="tile" (no kernel launches, the
+     frame within 5e-4 of the kernel route's), its frame and step ms read
+     beside the card's name and power limit;
  10. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Each kernel's bound_ms counts the fragments this run's data needs: the
@@ -411,14 +419,15 @@ def needed(tag, table, tile_starts, tile_counts, nproc, cfg, **band):
     return rows, rect
 
 
-def sgd_step(sc, params, view, proj, eye, cfg, lr=SGD_LR):
+def sgd_step(sc, params, view, proj, eye, cfg, lr=SGD_LR,
+             backend="kernel"):
     """One bench.py training step through render_with_aux: loss
     sum(img^2), backward, SGD.  Returns (loss, aux)."""
     from gaussiansplattingviewer_tpu_torch.ops.render import render_with_aux
 
     for p in params:
         p.grad = None
-    img, aux = render_with_aux(sc, view, proj, eye, cfg)
+    img, aux = render_with_aux(sc, view, proj, eye, cfg, backend=backend)
     loss = (img * img).sum()
     loss.backward()
     with torch.no_grad():
@@ -1168,7 +1177,7 @@ def sharded_cell(chk, zero_counts, counts, no_launch, scene, view, proj, eye,
             f"clock)")
         band_ms = []
         for idx, a in enumerate(captured):
-            cfg_b, local_rows, stride, table, starts, cnts, row0 = a
+            cfg_b, local_rows, stride, table, starts, cnts, row0 = a[:7]
             args = (table, starts, cnts, row0, cfg_b, local_rows, stride)
             with torch.no_grad():
                 ms, (rgb, trans) = cuda_ms(lambda: b1.tile_raster_fwd(*args),
@@ -1794,11 +1803,13 @@ def apps_cell(chk, zero_counts, counts, no_launch, work, scene_dir, golden,
         res_f = compare.compare_backends(
             flip, tf.look_at(eye_f, [0, 0, 0], [0, -1, 0]),
             Camera(h=64, w=96).get_project_matrix(), eye_f,
-            RenderConfig(width=96, height=64), device=DEVICE)
+            RenderConfig(width=96, height=64), ("kernel", "oracle"),
+            device=DEVICE)
         res = compare.compare_backends(
             golden, tf.look_at(eye3, [0, 0, 0], [0, -1, 0]),
             cam3.get_project_matrix(), eye3,
-            RenderConfig(width=GOLDEN_W, height=GOLDEN_H), device=DEVICE)
+            RenderConfig(width=GOLDEN_W, height=GOLDEN_H),
+            ("kernel", "oracle"), device=DEVICE)
     kvo_f, kvo = res_f["kernel_vs_oracle"], res["kernel_vs_oracle"]
     d = np.abs(res["images"]["kernel"] - res["images"]["oracle"]).max(-1)
     log(f"[eval] compare_backends flip scene 400 splats 96x64: kernel vs "
@@ -1812,6 +1823,104 @@ def apps_cell(chk, zero_counts, counts, no_launch, work, scene_dir, golden,
             and kvo["psnr"] >= GOLDEN_COMPARE["psnr"]):
         raise AssertionError("kernel and oracle disagree")
     log(f"[apps] phase {time.perf_counter() - t_phase:.2f} s")
+
+
+def tile_executor_cell(zero_counts, counts, no_launch, scene, view, proj,
+                       eye, cfg, smi):
+    """Phase 9b: the parity check (eval.gradcheck, the port of
+    scripts/tpu_gradcheck.py) on the card, the kernel route against the
+    tile executor: the toy case (B1, B2, B3 once each) and the bench-scale
+    fused case (B1, B2, B4 and B5), each within tpu_gradcheck.py's
+    thresholds; then the 1M bench scene at full size served once and
+    trained one step (bench.py's step) through backend="tile", launching
+    no kernel: the frame against the kernel route's within the parity
+    check's forward tolerance, the step's loss and gradients finite, the
+    plain executor's frame and step ms (read, not gated) and its chunk
+    steps beside the card."""
+    from gaussiansplattingviewer_tpu_torch.eval import gradcheck
+    from gaussiansplattingviewer_tpu_torch.models import GaussianData
+    from gaussiansplattingviewer_tpu_torch.ops import blend
+    from gaussiansplattingviewer_tpu_torch.ops.render import render
+
+    t_phase = time.perf_counter()
+    # the kernel route's launches: a frame (B1; fused, B1 and B4) and a
+    # gradient (B2, B3; fused, B2, B4 and B5 twice)
+    for name, case, need in (
+            ("toy", gradcheck.TOY, {**no_launch, "B1": 1, "B2": 1, "B3": 1}),
+            ("bench scale", gradcheck.BENCH_SCALE,
+             {**no_launch, "B1": 1, "B2": 1, "B4": 2, "B5": 2})):
+        zero_counts()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            res = gradcheck.run_case(**case, device=DEVICE)
+        seconds = time.perf_counter() - t0
+        got = counts()
+        for line in printed.getvalue().splitlines():
+            log(f"[parity] {line}")
+        worst = {k: max(f[k] for f in res["fields"].values())
+                 for k in ("rel_max", "rel_p99")}
+        log(f"[parity] {name} ({res['config']}): pass {res['pass']}, fwd "
+            f"max|diff| {res['fwd_max_abs_diff']:.3e}, worst rel_max "
+            f"{worst['rel_max']:.3e}, worst rel_p99 {worst['rel_p99']:.3e} "
+            f"(thresholds {res['thresholds']}), {seconds:.2f} s, kernel "
+            f"route launches {got}; {smi}")
+        if got != need:
+            raise AssertionError(f"parity {name}: launched {got}")
+        if not res["pass"]:
+            raise AssertionError(f"parity {name}: the kernels and the tile "
+                                 f"executor disagree")
+
+    # the 1M frame and step through the tile executor, its chunk steps
+    # counted around ops/blend.py's traversal
+    steps = []
+    traverse = blend._chunk_steps
+
+    def counted(*a, **k):
+        n = 0
+        for item in traverse(*a, **k):
+            n += 1
+            yield item
+        steps.append(n)
+
+    sc = GaussianData(*(getattr(scene, f).detach().clone()
+                        .requires_grad_(True) for f in FIELDS))
+    params = [getattr(sc, f) for f in FIELDS]
+    with torch.no_grad():
+        ref = render(sc, view, proj, eye, cfg)
+    blend._chunk_steps = counted
+    zero_counts()
+    try:
+        with torch.no_grad():
+            ms_frame, img = host_ms(lambda: render(sc, view, proj, eye, cfg,
+                                                   backend="tile"))
+        ms_step, (loss, aux) = host_ms(lambda: sgd_step(
+            sc, params, view, proj, eye, cfg, backend="tile"))
+    finally:
+        blend._chunk_steps = traverse
+    got = counts()
+    loss = float(loss.detach())
+    grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in params)
+    diff = float((img - ref).abs().max())
+    log(f"[tile] {len(scene)} splats SH{scene.sh_degree} {cfg.width}x"
+        f"{cfg.height} through backend=\"tile\" "
+        f"(the tile executor, plain PyTorch): frame {ms_frame:.3f} ms, "
+        f"training step {ms_step:.3f} ms (read, not gated); chunk steps: "
+        f"frame {steps[0]}, step forward {steps[1]} and backward "
+        f"{steps[2]}; {int(aux['num_duplicates'])} rows listed; loss "
+        f"{loss:.6g}; max|frame - kernel frame| {diff:.3e} (tol "
+        f"{gradcheck.BS_FWD_TOL}); kernel launches {got}; {smi}")
+    img_np = img.cpu().numpy()
+    if got != no_launch:
+        raise AssertionError(f"the tile executor launched {got}")
+    if img_np.shape != (cfg.height, cfg.width, 3) \
+            or not np.isfinite(img_np).all() or not img_np.std() > 0.01:
+        raise AssertionError("the tile executor's frame is not a finite "
+                             "non-blank (H, W, 3) image")
+    if not (diff < gradcheck.BS_FWD_TOL and np.isfinite(loss)
+            and grads_finite):
+        raise AssertionError("the tile executor's frame or step is wrong")
+    log(f"[tile] phase {time.perf_counter() - t_phase:.2f} s")
 
 
 def bound(name, flops, nbytes):
@@ -2176,7 +2285,7 @@ def main() -> int:
     sharded_cell(chk, zero_counts, counts, no_launch, big, view4, proj4, eye4,
                  cfg4)
 
-    del big, scene_1m
+    del big
     torch.cuda.empty_cache()
 
     # ---- 8b. the apps, eval and native I/O at full size
@@ -2187,6 +2296,14 @@ def main() -> int:
 
     # ---- 9. the garden cell
     g = garden_cell(chk, zero_counts, counts, no_launch)
+
+    # ---- 9b. the tile executor: the parity check, the 1M frame and step
+    big = scene_1m.pad_to_multiple(1024).to(dev)
+    del scene_1m
+    tile_executor_cell(zero_counts, counts, no_launch, big, view4, proj4,
+                       eye4, cfg4, smi)
+    del big
+    torch.cuda.empty_cache()
 
     # ---- 10. kernels line, card line, result
     fwd_src = "gaussiansplattingviewer_tpu_torch/csrc/tile_raster_fwd.cu"

@@ -32,7 +32,11 @@ import numpy as np
 
 from gaussiansplattingviewer_tpu_torch.apps.viewer import MODE_NAMES, load_scene
 from gaussiansplattingviewer_tpu_torch.config import RenderConfig, RenderMode
-from gaussiansplattingviewer_tpu_torch.ops.render import render, resolve_device
+from gaussiansplattingviewer_tpu_torch.ops.render import (
+    BACKENDS,
+    render,
+    resolve_device,
+)
 from gaussiansplattingviewer_tpu_torch.utils import colmap
 from gaussiansplattingviewer_tpu_torch.utils.camera import Camera
 from gaussiansplattingviewer_tpu_torch.utils.image_io import (
@@ -52,8 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--width", type=int, default=1160)
     ap.add_argument("--height", type=int, default=522)
     ap.add_argument("--mode", choices=sorted(MODE_NAMES), default="sh3")
-    ap.add_argument("--backend", choices=["kernel", "oracle"],
-                    default="kernel")
+    ap.add_argument("--backend", choices=BACKENDS, default="kernel")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                     "PyTorch versions of the kernels)")

@@ -8,7 +8,7 @@ Usage:
   python -m gaussiansplattingviewer_tpu_torch.apps.serve \
       [--gs-model scene_dir | --random-scene N] \
       [--width 960 --height 540] [--port 8008] [--device cuda] \
-      [--backend {kernel,oracle}]
+      [--backend {kernel,tile,oracle}]
 
 ``--gs-model`` takes a scene dir or a .ply, loaded by the viewer's
 ``load_scene`` (apps/viewer.py); without it the 4-splat test scene.
@@ -28,7 +28,11 @@ import numpy as np
 from gaussiansplattingviewer_tpu_torch.apps.viewer import MODE_NAMES, load_scene
 from gaussiansplattingviewer_tpu_torch.config import RenderConfig, RenderMode
 from gaussiansplattingviewer_tpu_torch.models import random_scene
-from gaussiansplattingviewer_tpu_torch.ops.render import render, resolve_device
+from gaussiansplattingviewer_tpu_torch.ops.render import (
+    BACKENDS,
+    render,
+    resolve_device,
+)
 from gaussiansplattingviewer_tpu_torch.utils import transforms as tf
 from gaussiansplattingviewer_tpu_torch.utils.camera import Camera
 from gaussiansplattingviewer_tpu_torch.utils.image_io import encode_rgb8
@@ -229,10 +233,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "executors)")
-    ap.add_argument("--backend", choices=["kernel", "oracle"],
-                    default="kernel",
-                    help="render() backend: the tile kernels or the exact "
-                         "oracle")
+    ap.add_argument("--backend", choices=BACKENDS, default="kernel",
+                    help="render() backend: the tile kernels, the tile "
+                         "executor (plain PyTorch) or the exact oracle")
     return ap
 
 

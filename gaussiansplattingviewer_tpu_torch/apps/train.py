@@ -59,7 +59,11 @@ from gaussiansplattingviewer_tpu_torch.ops.autotune import (
     autotune,
     binning_overflow,
 )
-from gaussiansplattingviewer_tpu_torch.ops.render import render, resolve_device
+from gaussiansplattingviewer_tpu_torch.ops.render import (
+    BACKENDS,
+    render,
+    resolve_device,
+)
 from gaussiansplattingviewer_tpu_torch.parallel import (
     all_reduce_grads,
     initialize_distributed,
@@ -86,8 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--width", type=int, default=256)
     ap.add_argument("--height", type=int, default=192)
     ap.add_argument("--loss", choices=["l2", "l1"], default="l2")
-    ap.add_argument("--backend", choices=["kernel", "oracle"],
-                    default="kernel")
+    ap.add_argument("--backend", choices=BACKENDS, default="kernel",
+                    help="render() backend; with --n-devices every backend "
+                    "but kernel blends on the tile executor, as in the JAX "
+                    "app")
     ap.add_argument("--n-devices", type=int, default=0,
                     help="tile-row shards, one process each, started by a "
                     "launcher such as torchrun (0 or 1 = single process)")
@@ -167,8 +173,6 @@ def main(argv=None) -> int:
     sharded = bool(args.n_devices and args.n_devices > 1)
     own_group = sharded and not dist.is_initialized()
     if sharded:
-        if backend != "kernel":
-            raise SystemExit("--n-devices takes the kernel backend")
         world = int(os.environ.get("WORLD_SIZE", "1")) \
             if not dist.is_initialized() else dist.get_world_size()
         if world != args.n_devices:
@@ -183,7 +187,8 @@ def main(argv=None) -> int:
         scene = replicate_scene(scene, mesh)
 
         def make_render(c):
-            return make_sharded_render_fn(mesh, c)
+            return make_sharded_render_fn(mesh, c,
+                                          use_kernel=(backend == "kernel"))
     else:
         dev = resolve_device(args.device)
         scene = scene.to(dev)

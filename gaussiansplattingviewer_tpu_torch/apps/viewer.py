@@ -7,7 +7,7 @@ camera survives as the scripted orbit and pose-replay paths:
 
   reference UI control                    -> CLI flag
   ------------------------------------------------------------------
-  backend combo (main.py:944-947)        -> --backend {kernel,oracle}
+  backend combo (main.py:944-947)        -> --backend {kernel,tile,oracle}
   render-mode combo (main.py:985-987)    -> --mode {sh0,sh1,sh2,sh3,depth,
                                              billboard,flat-ball,gaussian-ball}
   scale-modifier slider                   -> --scale-modifier
@@ -38,6 +38,7 @@ from gaussiansplattingviewer_tpu_torch.config import RenderConfig, RenderMode
 from gaussiansplattingviewer_tpu_torch.models import naive_gaussian
 from gaussiansplattingviewer_tpu_torch.models.ply import load_ply
 from gaussiansplattingviewer_tpu_torch.ops.render import (
+    BACKENDS,
     render,
     render_with_aux,
     resolve_device,
@@ -100,8 +101,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--width", type=int, default=1160)   # ref main.py:635
     ap.add_argument("--height", type=int, default=522)   # ref main.py:634
     ap.add_argument("--mode", choices=sorted(MODE_NAMES), default="sh3")
-    ap.add_argument("--backend", choices=["kernel", "oracle"],
-                    default="kernel")
+    ap.add_argument("--backend", choices=BACKENDS, default="kernel")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                     "PyTorch versions of the kernels)")

@@ -5,9 +5,10 @@ only compare its two renderers by eyeballing a backend combo flip
 (README.md:55 "slightly different results"; main.py:944-947).  Here the
 comparison is quantitative and scriptable: render the same scene with any
 subset of the port's backends ("kernel": the tile path, its blend on the
-CUDA kernels for CUDA tensors; "oracle": the global-sort blend) and report
-per-pair image deltas + PSNR.  With ``device="cpu"`` both run their plain
-PyTorch versions.
+CUDA kernels for CUDA tensors; "tile": the same path on the tile executor;
+"oracle": the global-sort blend), by default all three as in the JAX
+package, and report per-pair image deltas + PSNR.  With ``device="cpu"``
+the kernels run their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ def compare_backends(
     proj,
     cam_pos,
     cfg: RenderConfig,
-    backends=("kernel", "oracle"),
+    backends=("oracle", "tile", "kernel"),
     device=None,
 ) -> dict:
     """Render with each backend on ``device`` (default cuda) and compare
@@ -66,7 +67,8 @@ def main(argv=None):  # pragma: no cover - thin CLI
     ap.add_argument("--gs-model", default=None)
     ap.add_argument("--width", type=int, default=512)
     ap.add_argument("--height", type=int, default=288)
-    ap.add_argument("--backends", nargs="+", default=["kernel", "oracle"])
+    ap.add_argument("--backends", nargs="+",
+                    default=["oracle", "tile", "kernel"])
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
 

@@ -1,9 +1,13 @@
 """Tile-binned rasterization: the production render path.
 
 project -> bin_splats (ops/binning.py) -> blend_tiles (ops/blend.py, kernel
-B1 on the card) -> tiles assembled into the image, background composited.
-cfg.fused_grad takes the fused prefix/residual path instead:
-bin_splats_presort -> blend_fused (ops/fused.py, kernels B1/B2, B4, B5).
+B1 on the card, or the tile executor with ``use_kernel=False``) -> tiles
+assembled into the image, background composited.  cfg.fused_grad takes the
+fused prefix/residual path instead: bin_splats_presort -> blend_fused
+(ops/fused.py, kernels B1/B2, B4, B5), on the kernels only; the tile
+executor keeps the classic path regardless, as JAX's XLA executor does
+(its ``raster_tiles.py:68``), so a parity check of the two compares
+independent code paths.
 """
 
 from __future__ import annotations
@@ -43,11 +47,13 @@ def debug_counters(splats: ProjectedSplats, img):
 
 
 def rasterize_tiles(splats: ProjectedSplats, cfg: RenderConfig,
-                    return_aux: bool = False):
-    """Tile-binned render of projected splats -> (H, W, 3) image.  The
-    fused path's aux adds grad_rows_needed and grad_rows_dropped (0 outside
-    autograd), and its ``truncated`` sums both passes' truncation."""
-    if cfg.fused_grad:
+                    return_aux: bool = False, use_kernel: bool = True):
+    """Tile-binned render of projected splats -> (H, W, 3) image, the blend
+    on the kernels or, with ``use_kernel=False``, on the tile executor.
+    The fused path's aux adds grad_rows_needed and grad_rows_dropped (0
+    outside autograd), and its ``truncated`` sums both passes'
+    truncation."""
+    if cfg.fused_grad and use_kernel:
         pres = binning.bin_splats_presort(splats, cfg)
         rgb_tiles, trans_tiles, diag = blend_fused(
             cfg, cfg.tiles_y, 1, pres.table_src, pres.rows_sorted,
@@ -59,7 +65,7 @@ def rasterize_tiles(splats: ProjectedSplats, cfg: RenderConfig,
         binned = binning.bin_splats(splats, cfg)
         rgb_tiles, trans_tiles = blend_tiles(
             cfg, cfg.tiles_y, 1, binned.table, binned.tile_starts,
-            binned.tile_counts, 0,
+            binned.tile_counts, 0, use_kernel,
         )
         num_dup, overflow = binned.num_duplicates, binned.overflow
         truncated, extra = binned.truncated, {}

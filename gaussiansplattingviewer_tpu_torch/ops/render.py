@@ -2,7 +2,11 @@
 
 Backends:
   * "kernel" (default): project -> bin -> tile blend, the blend on the
-    hand-written CUDA kernel for CUDA tensors;
+    hand-written CUDA kernels for CUDA tensors (their plain versions on
+    the CPU), JAX's "pallas";
+  * "tile": the same pipeline with the blend on the tile executor
+    (ops/blend.py), plain PyTorch on any device, JAX's "tile" (its XLA
+    executor);
   * "oracle": global-sort full-image blend (ops/raster_oracle.py), the
     ground truth for small scenes.
 
@@ -12,7 +16,7 @@ without a card they raise instead of carrying on on the CPU.
 
 from __future__ import annotations
 
-from typing import Literal
+from typing import Literal, get_args
 
 import numpy as np
 import torch
@@ -25,7 +29,8 @@ from gaussiansplattingviewer_tpu_torch.ops.raster_oracle import (
 )
 from gaussiansplattingviewer_tpu_torch.ops.raster_tiles import rasterize_tiles
 
-Backend = Literal["kernel", "oracle"]
+Backend = Literal["kernel", "tile", "oracle"]
+BACKENDS = get_args(Backend)  # the apps' --backend choices
 
 
 def resolve_device(device=None) -> torch.device:
@@ -45,8 +50,9 @@ def _render(scene, view, proj, cam_pos, cfg, backend, device, return_aux):
     splats = project(scene.to(dev), view, proj, cam_pos, cfg)
     if backend == "oracle":
         return rasterize_oracle(splats, cfg, return_aux=return_aux)
-    if backend == "kernel":
-        return rasterize_tiles(splats, cfg, return_aux=return_aux)
+    if backend in ("kernel", "tile"):
+        return rasterize_tiles(splats, cfg, return_aux=return_aux,
+                               use_kernel=backend == "kernel")
     raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -61,9 +67,9 @@ def render_with_aux(scene: GaussianData, view, proj, cam_pos,
                     cfg: RenderConfig, backend: Backend = "kernel",
                     device=None):
     """Like render(), also returning {"transmittance": (H, W)} and, for the
-    kernel backend, the binning diagnostics num_duplicates / overflow /
-    truncated (and, with cfg.fused_grad, grad_rows_needed /
-    grad_rows_dropped)."""
+    kernel and tile backends, the binning diagnostics num_duplicates /
+    overflow / truncated (and, on the kernels with cfg.fused_grad,
+    grad_rows_needed / grad_rows_dropped)."""
     return _render(scene, view, proj, cam_pos, cfg, backend, device, True)
 
 

@@ -5,7 +5,8 @@ Each rank renders one set of tile rows of the image: the contiguous band
 {idx * rows + s} or, interleaved, the rows {idx + s * n}.  The tile-row
 count is padded to a multiple of the world size; padded rows render
 background and are cropped off.  On CUDA tensors a band runs kernels B1
-(or B2 and B3 under autograd) on its own table.
+(or B2 and B3 under autograd) on its own table, or with ``use_kernel=False``
+the tile executor (ops/blend.py), as JAX's bodies take ``use_pallas``.
 
   * replicated (default): every rank holds the whole scene, projects it,
     compacts the splats that touch its band (``band_budget_factor``) or
@@ -385,7 +386,7 @@ def _render_band(scene: GaussianData, view, proj, cam_pos, cfg: RenderConfig,
                  exchange_budget_factor: float = 3.0,
                  precull_budget_factor: float | None = None,
                  idx: int | None = None, group=None,
-                 return_aux: bool = False):
+                 return_aux: bool = False, use_kernel: bool = True):
     """One rank's program: render its tile rows, the contiguous band
     {idx * rows + s} (row_stride 1) or the interleaved rows {idx + s *
     n_shards} (row_stride n_shards).
@@ -393,7 +394,8 @@ def _render_band(scene: GaussianData, view, proj, cam_pos, cfg: RenderConfig,
     ``idx`` defaults to this process's rank in ``group``; a concrete
     ``idx`` runs that shard's exact program in one process (the replicated
     modes need no collective).  ``shard_splats`` and ``exchange`` take the
-    collectives of the JAX body over ``group``.
+    collectives of the JAX body over ``group``.  ``use_kernel`` picks the
+    blend's executor: the kernels, or the tile executor.
 
     Returns the band's image rows (rows * tile_size, tiles_x * tile_size,
     3) in local order, background composited; with ``return_aux`` also
@@ -467,7 +469,7 @@ def _render_band(scene: GaussianData, view, proj, cam_pos, cfg: RenderConfig,
                                 local_rows=rows, row_stride=row_stride)
     rgb_tiles, trans_tiles = blend_tiles(
         cfg, rows, row_stride, binned.table, binned.tile_starts,
-        binned.tile_counts, row0)
+        binned.tile_counts, row0, use_kernel)
     ts, tx_n = cfg.tile_size, cfg.tiles_x
     img = rgb_tiles.reshape(rows, tx_n, ts, ts, 3)
     img = img.permute(0, 2, 1, 3, 4).reshape(rows * ts, tx_n * ts, 3)
@@ -505,7 +507,8 @@ def make_sharded_render_fn(mesh: Mesh, cfg: RenderConfig,
                            gather_budget_factor: float | None = None,
                            exchange: bool = False,
                            exchange_budget_factor: float = 3.0,
-                           precull_budget_factor: float | None = None):
+                           precull_budget_factor: float | None = None,
+                           use_kernel: bool = True):
     """A sharded render: (scene, view, proj, cam_pos) -> the cropped (H, W,
     3) image on every rank.
 
@@ -516,7 +519,8 @@ def make_sharded_render_fn(mesh: Mesh, cfg: RenderConfig,
     (``shard_scene_splats``) with ``shard_splats``, where projection is
     split over the ranks and the projected splats are all-gathered, or
     with ``exchange`` as well sent by all-to-all to the ranks whose rows
-    they touch.
+    they touch.  ``use_kernel=False`` blends each band on the tile
+    executor instead of the kernels.
 
     Differentiable: every rank computes the same loss of the image, and a
     replicated scene's gradient on each rank is then its band's share,
@@ -533,7 +537,8 @@ def make_sharded_render_fn(mesh: Mesh, cfg: RenderConfig,
         band = _render_band(
             scene, view, proj, cam_pos, cfg, rows, shard_splats, stride,
             band_budget_factor, gather_budget_factor, exchange, n_shards,
-            exchange_budget_factor, precull_budget_factor, group=mesh.group)
+            exchange_budget_factor, precull_budget_factor, group=mesh.group,
+            use_kernel=use_kernel)
         img = _GatherImage.apply(band, mesh.group)  # (n, rows * ts, W, 3)
         w = img.shape[2]
         if interleaved:
@@ -547,9 +552,10 @@ def make_sharded_render_fn(mesh: Mesh, cfg: RenderConfig,
 
 
 def render_sharded(scene: GaussianData, view, proj, cam_pos,
-                   cfg: RenderConfig, mesh: Mesh):
+                   cfg: RenderConfig, mesh: Mesh, use_kernel: bool = True):
     """One sharded render with the default modes."""
-    return make_sharded_render_fn(mesh, cfg)(scene, view, proj, cam_pos)
+    return make_sharded_render_fn(mesh, cfg, use_kernel=use_kernel)(
+        scene, view, proj, cam_pos)
 
 
 def shard_scene_splats(scene: GaussianData, mesh: Mesh) -> GaussianData:
@@ -589,7 +595,8 @@ def make_sharded_train_step(mesh: Mesh, cfg: RenderConfig, optimizer=None,
                             gather_budget_factor: float | None = None,
                             exchange: bool = False,
                             exchange_budget_factor: float = 3.0,
-                            precull_budget_factor: float | None = None):
+                            precull_budget_factor: float | None = None,
+                            use_kernel: bool = True):
     """A multi-rank training step: L2 loss against a target image, the
     gradient summed over the ranks, an optimizer update.
 
@@ -604,7 +611,8 @@ def make_sharded_train_step(mesh: Mesh, cfg: RenderConfig, optimizer=None,
     Each rank computes its band's share of that mean and calls backward();
     a replicated scene's gradients are then summed by one all-reduce in a
     fixed order (``all_reduce_grads``); a splat shard's come back whole
-    from the reduce-scatter (or the reverse all-to-all)."""
+    from the reduce-scatter (or the reverse all-to-all).  ``use_kernel``
+    as in ``make_sharded_render_fn``."""
     if exchange and not shard_splats:
         raise ValueError("exchange=True requires shard_splats=True")
     if optimizer is None:
@@ -626,7 +634,8 @@ def make_sharded_train_step(mesh: Mesh, cfg: RenderConfig, optimizer=None,
         band = _render_band(
             scene, view, proj, cam_pos, cfg, rows, shard_splats, stride,
             band_budget_factor, gather_budget_factor, exchange, n_shards,
-            exchange_budget_factor, precull_budget_factor, group=mesh.group)
+            exchange_budget_factor, precull_budget_factor, group=mesh.group,
+            use_kernel=use_kernel)
         err = band[live, : cfg.width] - target[y[live]]
         loss = (err * err).sum() / denom
         loss.backward()

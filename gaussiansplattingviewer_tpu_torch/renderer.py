@@ -48,7 +48,8 @@ class GaussianRenderBase:
 
 
 class TorchRenderer(GaussianRenderBase):
-    """The PyTorch/CUDA backend: renders on ``device`` (default cuda)."""
+    """The PyTorch/CUDA backend: renders on ``device`` (default cuda)
+    through ``backend`` "kernel", "tile" or "oracle" (ops/render.py)."""
 
     def __init__(self, w: int, h: int, backend: str = "kernel", device=None):
         super().__init__()

@@ -37,7 +37,7 @@ def test_golden_kernel_vs_oracle_matches_the_reference():
     want = jax_compare(scene.to_device(), view, proj, eye, cfg,
                        backends=("tile", "oracle"))
     got = compare_backends(port_scene(scene), view, proj, eye, port_cfg(cfg),
-                           device="cpu")
+                           ("kernel", "oracle"), device="cpu")
     ref, ours = want["tile_vs_oracle"], got["kernel_vs_oracle"]
 
     # the reference misses max_abs 1e-4 on this scene by itself ...

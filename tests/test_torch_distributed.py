@@ -8,8 +8,10 @@ with and without ``gather_budget_factor``, and ``exchange`` (contiguous
 and interleaved); each returns its image and the gradient of sum(img * w),
 summed over the ranks (replicated) or gathered from the shards.  Both are
 held to the port's single-process render at 1e-5 (relative to max|g| for
-gradients).  The spawn also runs 3 sharded train steps (replicated and
-exchange) and, with 2 ranks, the trainer CLI with ``--n-devices 2``.
+gradients); the modes with ``use_kernel=False`` blend on the tile executor
+and are held to ``render(backend="tile")``.  The spawn also runs 3 sharded
+train steps (replicated and exchange) and, with 2 ranks, the trainer CLI
+with ``--n-devices 2``, with the kernel and the tile backend.
 
 The processes meet through a ``file://`` rendezvous under the test's
 temporary directory, never a fixed port.  This module imports no JAX: the
@@ -44,6 +46,9 @@ MODES = {
     "exchange": dict(shard_splats=True, exchange=True),
     "exchange_interleaved": dict(shard_splats=True, exchange=True,
                                  interleaved=True),
+    "tile": dict(use_kernel=False),
+    "exchange_tile": dict(shard_splats=True, exchange=True,
+                          use_kernel=False),
 }
 TRAIN_MODES = {"replicated": {}, "exchange": dict(shard_splats=True,
                                                   exchange=True)}
@@ -120,13 +125,14 @@ def _train(mesh, scene, view, proj, eye):
     return out
 
 
-def _cli(tmp):
+def _cli(tmp, backend="kernel"):
     from gaussiansplattingviewer_tpu_torch.apps import train
 
     return train.main(["--n-devices", str(dist.get_world_size()),
                        "--device", "cpu", "--self-distill", "--steps", "2",
                        "--width", "64", "--height", "48", "--log-every", "1",
-                       "--out", os.path.join(tmp, "trained.npz")])
+                       "--backend", backend,
+                       "--out", os.path.join(tmp, f"trained_{backend}.npz")])
 
 
 def _worker(rank, world, tmp):
@@ -145,6 +151,7 @@ def _worker(rank, world, tmp):
         res["train"] = _train(mesh, scene, view, proj, eye)
         if world == 2:
             res["cli_rc"] = _cli(tmp)
+            res["cli_tile_rc"] = _cli(tmp, "tile")
         dist.destroy_process_group()
     except Exception:  # the parent reports it: a worker must not go down
         res["error"] = traceback.format_exc()
@@ -180,19 +187,26 @@ def runs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def reference():
-    """The port's single-process image and gradients of sum(img * w)."""
+    """The port's single-process image and gradients of sum(img * w), for
+    the kernel and the tile backend."""
     scene, view, proj, eye, weights = _inputs()
-    sc = _leaves(scene)
-    img = render(sc, view, proj, eye, CFG, device="cpu")
-    (img * weights).sum().backward()
-    return {"img": img.detach(),
-            **{f: getattr(sc, f).grad for f in FIELDS}}
+    out = {}
+    for backend in ("kernel", "tile"):
+        sc = _leaves(scene)
+        img = render(sc, view, proj, eye, CFG, backend=backend,
+                     device="cpu")
+        (img * weights).sum().backward()
+        out[backend] = {"img": img.detach(),
+                        **{f: getattr(sc, f).grad for f in FIELDS}}
+    return out
 
 
 @pytest.mark.parametrize("world", WORLD_SIZES)
 @pytest.mark.parametrize("mode", list(MODES))
 def test_sharded_render_matches_single_process(runs, reference, world,
                                                mode):
+    reference = reference[
+        "kernel" if MODES[mode].get("use_kernel", True) else "tile"]
     for rank, res in enumerate(runs[world]):
         got = res["modes"][mode]
         np.testing.assert_allclose(got["img"].numpy(),
@@ -225,6 +239,12 @@ def test_sharded_train_step(runs, world, mode):
 
 def test_trainer_cli_two_ranks(runs):
     assert [res["cli_rc"] for res in runs[2]] == [0, 0]
+
+
+def test_trainer_cli_two_ranks_tile_backend(runs):
+    """``--n-devices`` takes the tile backend (as the JAX app does): the
+    bands blend on the tile executor."""
+    assert [res["cli_tile_rc"] for res in runs[2]] == [0, 0]
 
 
 def test_trainer_refuses_wrong_world_size(monkeypatch):

@@ -311,7 +311,7 @@ def test_compare_backends_through_the_port():
     view = tf.look_at(eye, [0, 0, 0], [0, -1, 0])
     proj = Camera(h=48, w=64).get_project_matrix()
     got = compare_backends(port_scene(scene), view, proj, eye, port_cfg(cfg),
-                           device="cpu")
+                           ("kernel", "oracle"), device="cpu")
     want = jax_compare(scene.to_device(), view, proj, eye, cfg,
                        backends=("tile", "oracle"))
     assert got.keys() == {"images", "kernel_vs_oracle"}

@@ -111,6 +111,9 @@ NEW_MODULES = {
         "lpips_available", "lpips_distance"),
     "gaussiansplattingviewer_tpu_torch.eval.compare": (
         "compare_backends", "main"),
+    # scripts/tpu_gradcheck.py's names
+    "gaussiansplattingviewer_tpu_torch.eval.gradcheck": (
+        "run_case", "main"),
 }
 
 

@@ -181,31 +181,34 @@ def test_tile_raster_bwd_matches_plain(mode, opacity, band):
     assert torch.equal(g, b3.tile_raster_bwd(*bwd_args))
 
 
-def _render_gradient_card_vs_cpu(dev, cfg):
-    """The gradient of sum(img^2) on the card and on the CPU, per field
-    within 1e-4 * max|g|."""
+def _render_gradient_card_vs_cpu(dev, cfg, backend="kernel", rel=1e-4):
+    """The gradient of sum(img^2) through ``backend`` on the card and on
+    the CPU, per field within ``rel`` * max|g|; returns both images."""
     scene = random_scene(3000, sh_degree=3, seed=9, extent=2.0,
                          mean_scale=0.05)
     cam = Camera(h=cfg.height, w=cfg.width)
     cam.fovy = 1.0
     eye = np.array([0.0, 0.0, 5.0], np.float32)
     view = tf.look_at(eye, [0, 0, 0], [0, -1, 0])
-    grads = []
+    grads, imgs = [], []
     for d in (dev, torch.device("cpu")):
         sc = scene.to(d)
         leaves = [sc.xyz, sc.rot, sc.scale, sc.opacity, sc.sh]
         for t in leaves:
             t.requires_grad_(True)
-        img = render(sc, view, cam.get_project_matrix(), eye, cfg, device=d)
+        img = render(sc, view, cam.get_project_matrix(), eye, cfg,
+                     backend=backend, device=d)
         (img * img).sum().backward()
         grads.append([t.grad.cpu() for t in leaves])
+        imgs.append(img.detach().cpu())
     for name, g_card, g_cpu in zip(("xyz", "rot", "scale", "opacity", "sh"),
                                    *grads):
         scale = float(g_cpu.abs().max())
         assert scale > 0, name
         err = float((g_card - g_cpu).abs().max())
         print(f"{name}: max|card - cpu| / max|g| = {err / scale:.3e}")
-        assert err <= 1e-4 * scale, name
+        assert err <= rel * scale, name
+    return imgs
 
 
 @pytest.mark.gpu
@@ -231,6 +234,26 @@ def test_render_gradient_at_tile_8_and_32_on_card_matches_cpu(ts):
                           grad_fold_bf16=False))
     assert (b1.tile_raster_fwd_train.launches,
             b3.tile_raster_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [8, 16, 32])
+def test_tile_backend_on_card_matches_cpu(ts):
+    """render(backend="tile"), the tile executor in plain PyTorch, on the
+    card against the same render on the CPU: the image within 1e-5 and
+    the gradient of sum(img^2) per field within 1e-5 * max|g|; no kernel
+    launches."""
+    dev = _card()
+    fns = (b1.tile_raster_fwd, b1.tile_raster_fwd_train,
+           b1.tile_raster_fwd_seeded, b3.tile_raster_bwd,
+           b3.tile_raster_bwd_fused)
+    before = [fn.launches for fn in fns]
+    card, cpu = _render_gradient_card_vs_cpu(
+        dev, RenderConfig(width=320, height=192, tile_size=ts,
+                          grad_fold_bf16=False), backend="tile", rel=1e-5)
+    assert [fn.launches for fn in fns] == before
+    assert float(cpu.max()) > 0.1
+    assert float((card - cpu).abs().max()) <= 1e-5
 
 
 def _seeded_args(dev, cfg, opacity=None, band=None):
