@@ -84,7 +84,19 @@ Phases, each fatal on failure:
      and trained one step through backend="tile" (no kernel launches, the
      frame within 5e-4 of the kernel route's), its frame and step ms read
      beside the card's name and power limit;
- 10. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+ 10. the JAX repository's measurement entry points as the port's modules,
+     each run as a subprocess from the repository's root: ``python -m
+     gaussiansplattingviewer_tpu_torch.bench`` with its defaults (the 1M
+     training step, the forward, the garden step, the parity check): rc 0,
+     bench.py's keys and the port's four in its last line, parity_pass
+     true, and per profiled step B2 and B3 once (1M, classic), B1 once
+     (forward), B2 and B4 once and B5 twice (garden);
+     ``eval.ply_roundtrip`` at 5.8M splats passing every gate;
+     ``eval.scaling`` with N shard times per row, efficiencies in (0,
+     1.05], the bands of every row that dropped no splat within the early
+     stop of render() and no bandwidth constant; each module's seconds
+     beside the card;
+ 11. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Each kernel's bound_ms counts the fragments this run's data needs: the
 pixels inside each blended row's rect (fragments_needed).
@@ -97,6 +109,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1923,6 +1936,116 @@ def tile_executor_cell(zero_counts, counts, no_launch, scene, view, proj,
     log(f"[tile] phase {time.perf_counter() - t_phase:.2f} s")
 
 
+# the bench JSON line's keys: bench.py's and the port's four
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "fwd_mpix_s",
+              "fwd_vs_baseline", "garden_ms_frame", "garden_mpix_s",
+              "parity_pass", "card", "ms_step", "device_ms_step", "busy")
+# kernel wrapper launches per profiled step: the 1M step is classic, the
+# garden step fused (the tuner's decisions), the forward B1 alone
+BENCH_LAUNCHES = {
+    "headline": {"B1": 0, "B2": 1, "B3": 1, "B4": 0, "B5": 0},
+    "forward": {"B1": 1, "B2": 0, "B3": 0, "B4": 0, "B5": 0},
+    "garden": {"B1": 0, "B2": 1, "B3": 0, "B4": 1, "B5": 2}}
+MODULE_TIMEOUT_S = 900
+
+
+def run_module(module, smi, *argv):
+    """``python -m gaussiansplattingviewer_tpu_torch.<module>`` from the
+    repository's root, as a user runs it; fails on a non-zero exit.
+    Returns (stdout, stderr)."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root) + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"gaussiansplattingviewer_tpu_torch.{module}",
+         *argv], cwd=root, env=env, capture_output=True, text=True,
+        timeout=MODULE_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    for line in proc.stderr.splitlines()[-60:]:
+        log(f"[{module}] {line}")
+    for line in proc.stdout.splitlines()[-40:]:
+        log(f"[{module}] {line}")
+    log(f"[modules] {module}: rc {proc.returncode} in {seconds:.1f} s; {smi}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout, proc.stderr
+
+
+def modules_cell(smi):
+    """Phase 10: the JAX repository's measurement entry points as the
+    port's modules, each a subprocess from the repository's root: bench
+    with its defaults (the 1M training step, the forward, the garden step
+    and the parity check), its JSON line's keys, parity_pass true and the
+    profiled steps' launches; eval.ply_roundtrip at 5.8M splats passing
+    every gate; eval.scaling's rows, N shard times each, efficiencies in
+    (0, 1.05], the bands of rows that dropped no splat against render()
+    and no bandwidth constant."""
+    from gaussiansplattingviewer_tpu_torch.config import RenderConfig
+
+    t_phase = time.perf_counter()
+    out, err = run_module("bench", smi)
+    result = json.loads(out.strip().splitlines()[-1])
+    missing = [k for k in BENCH_KEYS if k not in result]
+    if missing or result["parity_pass"] is not True:
+        raise AssertionError(f"bench's line lacks {missing} or parity "
+                             f"failed: {result}")
+    profiled = {}
+    for line in err.splitlines():
+        if line.startswith("# profiled: "):
+            d = json.loads(line[len("# profiled: "):])
+            profiled[d["label"]] = d
+    for label, want in BENCH_LAUNCHES.items():
+        got = profiled[label]["launches_per_step"]
+        if got != want:
+            raise AssertionError(f"bench {label}: launches per step {got}")
+    if not all(0 < result[k] for k in ("value", "fwd_mpix_s",
+                                        "garden_mpix_s", "ms_step",
+                                        "device_ms_step", "busy")):
+        raise AssertionError(f"bench's numbers are not positive: {result}")
+
+    run_module("eval.ply_roundtrip", smi)
+    ply = json.loads((Path(__file__).resolve().parent / "chiprun_out"
+                      / "ply_roundtrip_cuda.json").read_text())
+    if ply["pass"] is not True:
+        raise AssertionError(f"ply_roundtrip failed its gates: {ply}")
+
+    run_module("eval.scaling", smi)
+    path = Path(__file__).resolve().parent / "chiprun_out" / \
+        "scaling_cuda.json"
+    text = path.read_text()
+    scaling = json.loads(text)
+    if scaling["config"]["render_truncated"] != 0:
+        raise AssertionError(f"scaling's frame truncated rows: "
+                             f"{scaling['config']}")
+    stop = RenderConfig().early_stop_transmittance
+    tol = stop * max(1.0, scaling["config"]["render_max_abs"])
+    # JAX's band budgets drop splats where a band holds more than its
+    # share allows (counted in ``dropped``): those bands render another
+    # image; every other row's bands agree with render()
+    for row in scaling["runs"]:
+        ok = (len(row["shard_ms"]) == row["n_dev"]
+              and all(t > 0 for t in row["shard_ms"])
+              and 0 < row["scaling_eff"] <= 1.05
+              and 0 < row["balance_eff"] <= 1.05
+              and (row["dropped"] > 0 or row["max_abs_vs_render"] <= tol))
+        if not ok:
+            raise AssertionError(f"scaling row out of bounds (bands vs "
+                                 f"render tol {tol:.1e}): {row}")
+    exact = [(r["n_dev"], r["assignment"]) for r in scaling["runs"]
+             if r["dropped"] == 0]
+    log(f"[modules] scaling rows that dropped no splat (held to render() "
+        f"within {tol:.1e}): {exact}")
+    if not {(1, "contiguous"), (2, "contiguous")} <= set(exact):
+        raise AssertionError("scaling: the 1- and 2-band rows dropped "
+                             "splats")
+    if "gbps" in text.lower():
+        raise AssertionError("scaling's JSON carries a bandwidth constant")
+    log(f"[modules] phase {time.perf_counter() - t_phase:.2f} s")
+
+
 def bound(name, flops, nbytes):
     """(bound ms, what bounds it) from the work this run's data needs."""
     ops_ms = flops / PEAK_FP32_FLOPS * 1e3
@@ -2305,7 +2428,10 @@ def main() -> int:
     del big
     torch.cuda.empty_cache()
 
-    # ---- 10. kernels line, card line, result
+    # ---- 10. the measurement entry points: bench, ply_roundtrip, scaling
+    modules_cell(smi)
+
+    # ---- 11. kernels line, card line, result
     fwd_src = "gaussiansplattingviewer_tpu_torch/csrc/tile_raster_fwd.cu"
     bwd_src = "gaussiansplattingviewer_tpu_torch/csrc/tile_raster_bwd.cu"
     pallas = "gaussiansplattingviewer_tpu/ops/pallas/"

@@ -467,15 +467,9 @@ def _render_band(scene: GaussianData, view, proj, cam_pos, cfg: RenderConfig,
 
     binned = binning.bin_splats(splats, cfg, row_offset=row0,
                                 local_rows=rows, row_stride=row_stride)
-    rgb_tiles, trans_tiles = blend_tiles(
+    img = band_image(*blend_tiles(
         cfg, rows, row_stride, binned.table, binned.tile_starts,
-        binned.tile_counts, row0, use_kernel)
-    ts, tx_n = cfg.tile_size, cfg.tiles_x
-    img = rgb_tiles.reshape(rows, tx_n, ts, ts, 3)
-    img = img.permute(0, 2, 1, 3, 4).reshape(rows * ts, tx_n * ts, 3)
-    trans = trans_tiles.reshape(rows, tx_n, ts, ts)
-    trans = trans.permute(0, 2, 1, 3).reshape(rows * ts, tx_n * ts)
-    img = img + cfg.background * trans[..., None]
+        binned.tile_counts, row0, use_kernel), cfg, rows)
     if not return_aux:
         return img
     if kept_n is None:
@@ -483,6 +477,18 @@ def _render_band(scene: GaussianData, view, proj, cam_pos, cfg: RenderConfig,
     return img, {"kept": kept_n, "dropped": dropped,
                  "num_duplicates": binned.num_duplicates,
                  "truncated": binned.truncated, "overflow": binned.overflow}
+
+
+def band_image(rgb_tiles, trans_tiles, cfg: RenderConfig, rows: int):
+    """A band's blended tiles (rows * tiles_x, P, 3) and (rows * tiles_x,
+    P) as its image rows (rows * tile_size, tiles_x * tile_size, 3) in
+    local order, background composited."""
+    ts, tx_n = cfg.tile_size, cfg.tiles_x
+    img = rgb_tiles.reshape(rows, tx_n, ts, ts, 3)
+    img = img.permute(0, 2, 1, 3, 4).reshape(rows * ts, tx_n * ts, 3)
+    trans = trans_tiles.reshape(rows, tx_n, ts, ts)
+    trans = trans.permute(0, 2, 1, 3).reshape(rows * ts, tx_n * ts)
+    return img + cfg.background * trans[..., None]
 
 
 def band_pixel_rows(cfg: RenderConfig, n_shards: int, idx: int,

@@ -114,6 +114,11 @@ NEW_MODULES = {
     # scripts/tpu_gradcheck.py's names
     "gaussiansplattingviewer_tpu_torch.eval.gradcheck": (
         "run_case", "main"),
+    # the measurement entry points: bench.py, scripts/ply_roundtrip_tpu.py
+    # and scripts/scaling.py
+    "gaussiansplattingviewer_tpu_torch.bench": ("main",),
+    "gaussiansplattingviewer_tpu_torch.eval.ply_roundtrip": ("main",),
+    "gaussiansplattingviewer_tpu_torch.eval.scaling": ("main",),
 }
 
 
