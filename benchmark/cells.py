@@ -1,0 +1,65 @@
+"""Finds a cell's parts by name, from ``BENCHMARK.json`` and the files
+beside the harness, so that a new configuration, mix, cell or per-layer
+metric is a new file and entry, and no edit:
+
+  configs/<config>.json   the configuration (``file`` in BENCHMARK.json)
+  traffic/<mix>.json      the traffic mix
+  limits/<cell>.json      the limit of each number the judge compares
+  metrics/<metric>.py     a per-layer metric's reader, ``read(run)``;
+                          ``<a>.<b>`` falls back to ``metrics/<a>.py``
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+
+class Spec:
+    """BENCHMARK.json, read from the checkout ``root``."""
+
+    def __init__(self, root: Path, bench_dir: Path = HERE):
+        self.root = Path(root)
+        self.dir = Path(bench_dir)
+        self.data = json.loads((self.root / "BENCHMARK.json").read_text())
+
+    def cell(self, name: str) -> dict:
+        for w in self.data["workloads"]:
+            if w["name"] == name:
+                return w
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+
+    def config(self, name: str) -> dict:
+        for c in self.data["configs"]:
+            if c["name"] == name:
+                return json.loads((self.root / c["file"]).read_text())
+        raise KeyError(f"no config {name!r} in BENCHMARK.json")
+
+    def traffic(self, name: str) -> dict:
+        return json.loads((self.dir / "traffic" / f"{name}.json").read_text())
+
+    def limits(self, cell: str) -> dict:
+        return json.loads((self.dir / "limits" / f"{cell}.json").read_text())
+
+    def end_to_end(self, cell: str) -> list[dict]:
+        return [m for m in self.data["end_to_end"]
+                if cell in m.get("workloads", [cell])]
+
+    def per_layer(self, cell: str) -> list[dict]:
+        return [m for m in self.data["per_layer"]
+                if cell in m.get("workloads", [cell])]
+
+    def reader(self, metric: str):
+        """The ``read`` function of a per-layer metric."""
+        base = self.dir / "metrics"
+        path = base / f"{metric}.py"
+        if not path.exists():
+            path = base / f"{metric.split('.')[0]}.py"
+        spec = importlib.util.spec_from_file_location(
+            "benchmark_metric_" + path.stem.replace(".", "_"), path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module.read
