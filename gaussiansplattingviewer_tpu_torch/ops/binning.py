@@ -42,6 +42,7 @@ import torch
 
 from gaussiansplattingviewer_tpu_torch.config import RenderConfig, RenderMode
 from gaussiansplattingviewer_tpu_torch.ops.projection import ProjectedSplats
+from gaussiansplattingviewer_tpu_torch.utils import profiling
 
 # Row layout of the packed splat table (lane-padded to 16 floats):
 # [cx, cy, conic_a, conic_b, conic_c, r, g, b, opacity, rx, ry, depth,
@@ -159,9 +160,10 @@ def tile_bbox(splats: ProjectedSplats, cfg: RenderConfig, ty_lo: int = 0,
 
 def pack_table(splats: ProjectedSplats) -> torch.Tensor:
     """Per-splat render attributes as (N, TABLE_WIDTH) f32 rows
-    (differentiable)."""
+    (differentiable).  While recording, their gradient opens span
+    ``project_bwd``."""
     zero = torch.zeros_like(splats.depth)
-    return torch.stack([
+    table = torch.stack([
         splats.mean2d[:, 0], splats.mean2d[:, 1],
         splats.conic[:, 0], splats.conic[:, 1], splats.conic[:, 2],
         splats.color[:, 0], splats.color[:, 1], splats.color[:, 2],
@@ -169,6 +171,10 @@ def pack_table(splats: ProjectedSplats) -> torch.Tensor:
         splats.radius[:, 0], splats.radius[:, 1], splats.depth,
         zero, zero, zero, zero,
     ], dim=1).to(torch.float32)
+    if profiling.recording():
+        (table,) = profiling.open_in_backward("project_bwd", (table,),
+                                              table.device)
+    return table
 
 
 def fold_table_grad(g: torch.Tensor, pos: torch.Tensor,
@@ -204,6 +210,7 @@ class _GatherTableRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, packed, sid, pos, offsets, width, fold_bf16):
+        ctx.request = profiling.request()
         cap = sid.shape[0]
         table = torch.zeros((TABLE_WIDTH, width), dtype=torch.float32,
                             device=packed.device)
@@ -216,8 +223,10 @@ class _GatherTableRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         pos, offsets = ctx.saved_tensors
-        return fold_table_grad(g, pos, offsets, ctx.cap, ctx.fold_bf16), \
-            None, None, None, None, None
+        with profiling.span("fold", g.device, request=ctx.request):
+            g_packed = fold_table_grad(g, pos, offsets, ctx.cap,
+                                       ctx.fold_bf16)
+        return g_packed, None, None, None, None, None
 
 
 def _tight_live(splats: ProjectedSplats, cfg: RenderConfig, sid, tx_i, ty_i,
@@ -319,6 +328,7 @@ def _sorted_rows(splats: ProjectedSplats, cfg: RenderConfig, row_offset: int,
         keep = _tight_live(splats, cfg, sid, tx_i, ty_i, row_offset,
                            row_stride)
         sid, tx_i, ty_i = sid[keep], tx_i[keep], ty_i[keep]
+    profiling.count("bin.pairs", sid.shape[0])
     tiles = ty_i * cfg.tiles_x + tx_i
 
     # ---- fused (tile | depth) key, splat id as the secondary key
@@ -351,25 +361,33 @@ def bin_splats_presort(splats: ProjectedSplats, cfg: RenderConfig,
                        row_offset: int = 0, local_rows: int | None = None,
                        row_stride: int = 1) -> PresortedBins:
     """Duplicate expansion and the fused (tile | depth) sort without the
-    table gather (the port of the JAX ``bin_splats_presort``)."""
-    sid_sorted, starts, overflow, _, _ = _sorted_rows(
-        splats, cfg, row_offset, local_rows, row_stride)
-    return PresortedBins(
-        table_src=pack_table(splats),
-        rows_sorted=sid_sorted,
-        starts_full=starts.to(torch.int32),
-        num_duplicates=torch.tensor(int(sid_sorted.shape[0]),
-                                    dtype=torch.int32,
-                                    device=sid_sorted.device),
-        overflow=overflow,
-    )
+    table gather (the port of the JAX ``bin_splats_presort``).  Span
+    ``bin``."""
+    with profiling.span("bin", splats.depth.device):
+        sid_sorted, starts, overflow, _, _ = _sorted_rows(
+            splats, cfg, row_offset, local_rows, row_stride)
+        return PresortedBins(
+            table_src=pack_table(splats),
+            rows_sorted=sid_sorted,
+            starts_full=starts.to(torch.int32),
+            num_duplicates=torch.tensor(int(sid_sorted.shape[0]),
+                                        dtype=torch.int32,
+                                        device=sid_sorted.device),
+            overflow=overflow,
+        )
 
 
 def bin_splats(splats: ProjectedSplats, cfg: RenderConfig,
                row_offset: int = 0, local_rows: int | None = None,
                row_stride: int = 1) -> BinnedSplats:
     """Depth-ordered per-tile lists over the shard's ``local_rows`` global
-    tile rows {row_offset + s * row_stride}; defaults cover the image."""
+    tile rows {row_offset + s * row_stride}; defaults cover the image.
+    Span ``bin``."""
+    with profiling.span("bin", splats.depth.device):
+        return _bin_splats(splats, cfg, row_offset, local_rows, row_stride)
+
+
+def _bin_splats(splats, cfg, row_offset, local_rows, row_stride):
     packed = pack_table(splats)
     sid_sorted, starts, overflow, pos, offsets = _sorted_rows(
         splats, cfg, row_offset, local_rows, row_stride)

@@ -48,6 +48,7 @@ from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
     tile_raster_fwd,
     tile_raster_fwd_train,
 )
+from gaussiansplattingviewer_tpu_torch.utils import profiling
 
 CHUNK = 16  # the tile executor's chunk (JAX ops/blend.py:45)
 _RGB = (binning.COL_R, binning.COL_G, binning.COL_BCH)
@@ -64,16 +65,18 @@ class _BlendTiles(torch.autograd.Function):
             table, starts, counts, row_offset, cfg, local_rows, row_stride)
         ctx.save_for_backward(table, starts, counts, trans, ckpt, nproc)
         ctx.args = (cfg, local_rows, row_stride, row_offset)
+        ctx.request = profiling.request()
         return rgb, trans
 
     @staticmethod
     def backward(ctx, g_rgb, g_trans):
         table, starts, counts, trans, ckpt, nproc = ctx.saved_tensors
         cfg, local_rows, row_stride, row_offset = ctx.args
-        g_rgb, g_trans = _cotangents(g_rgb, g_trans, trans)
-        g_table = tile_raster_bwd(
-            table, starts, counts, nproc, ckpt, row_offset, g_rgb, g_trans,
-            trans, cfg, local_rows, row_stride)
+        with profiling.span("blend_bwd", table.device, request=ctx.request):
+            g_rgb, g_trans = _cotangents(g_rgb, g_trans, trans)
+            g_table = tile_raster_bwd(
+                table, starts, counts, nproc, ckpt, row_offset, g_rgb,
+                g_trans, trans, cfg, local_rows, row_stride)
         return g_table, None, None, None, None, None, None
 
 
@@ -230,14 +233,16 @@ class _TileBlend(torch.autograd.Function):
         rgb, trans = _tile_fwd(table, starts, counts, px, py, cfg)
         ctx.save_for_backward(table, starts, counts, px, py, rgb, trans)
         ctx.cfg = cfg
+        ctx.request = profiling.request()
         return rgb, trans
 
     @staticmethod
     def backward(ctx, g_rgb, g_trans):
         table, starts, counts, px, py, rgb, trans = ctx.saved_tensors
-        g_rgb, g_trans = _cotangents(g_rgb, g_trans, trans)
-        g_table = _tile_bwd(table, starts, counts, px, py, g_rgb, g_trans,
-                            rgb, trans, ctx.cfg)
+        with profiling.span("blend_bwd", table.device, request=ctx.request):
+            g_rgb, g_trans = _cotangents(g_rgb, g_trans, trans)
+            g_table = _tile_bwd(table, starts, counts, px, py, g_rgb,
+                                g_trans, rgb, trans, ctx.cfg)
         return g_table, None, None, None, None, None
 
 

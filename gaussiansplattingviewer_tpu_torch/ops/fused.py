@@ -50,6 +50,7 @@ from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
     tile_raster_fwd_seeded,
     tile_raster_fwd_train,
 )
+from gaussiansplattingviewer_tpu_torch.utils import profiling
 
 
 def _exclusive(x):
@@ -260,6 +261,7 @@ class _BlendFused(torch.autograd.Function):
         ctx.save_for_backward(*saved)
         ctx.args = (cfg, local_rows, row_stride, row_offset, f["n"],
                     g1_budget, g2_budget)
+        ctx.request = profiling.request()
         ctx.mark_non_differentiable(diag)
         return f["rgb"], f["trans"], diag
 
@@ -269,29 +271,31 @@ class _BlendFused(torch.autograd.Function):
             ctx.args
         (table1, pstarts_c, pcounts, ckpt1, np1, goff1, trans1, trans,
          *pass2) = ctx.saved_tensors
-        g_rgb = torch.zeros((*trans.shape, 3), dtype=trans.dtype,
-                            device=trans.device) if g_rgb is None \
-            else g_rgb.contiguous()
-        g_trans = torch.zeros_like(trans) if g_trans is None \
-            else g_trans.contiguous()
-        band = (cfg, local_rows, row_stride)
-        rows = []
-        if pass2:
-            table2, rstarts_c, rcounts, ckpt2, np2, goff2, rgb2 = pass2
-            rows.append(tile_raster_bwd_fused(
-                table2, rstarts_c, rcounts, np2, goff2, ckpt2, row_offset,
-                g_rgb, g_trans, trans, torch.zeros_like(trans), trans1,
-                g2_budget, *band))
-            # pass-1 splats see the residual splats behind them
-            suffix1 = (g_rgb * rgb2).sum(dim=-1)
-        else:
-            suffix1 = torch.zeros_like(trans)
-        rows.insert(0, tile_raster_bwd_fused(
-            table1, pstarts_c, pcounts, np1, goff1, ckpt1, row_offset,
-            g_rgb, g_trans, trans, suffix1, torch.ones_like(trans),
-            g1_budget, *band))
-        g_all = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
-        g_src = fold_rows_by_id(g_all, n, bool(cfg.grad_fold_bf16))
+        with profiling.span("blend_bwd", trans.device, request=ctx.request):
+            g_rgb = torch.zeros((*trans.shape, 3), dtype=trans.dtype,
+                                device=trans.device) if g_rgb is None \
+                else g_rgb.contiguous()
+            g_trans = torch.zeros_like(trans) if g_trans is None \
+                else g_trans.contiguous()
+            band = (cfg, local_rows, row_stride)
+            rows = []
+            if pass2:
+                table2, rstarts_c, rcounts, ckpt2, np2, goff2, rgb2 = pass2
+                rows.append(tile_raster_bwd_fused(
+                    table2, rstarts_c, rcounts, np2, goff2, ckpt2,
+                    row_offset, g_rgb, g_trans, trans,
+                    torch.zeros_like(trans), trans1, g2_budget, *band))
+                # pass-1 splats see the residual splats behind them
+                suffix1 = (g_rgb * rgb2).sum(dim=-1)
+            else:
+                suffix1 = torch.zeros_like(trans)
+            rows.insert(0, tile_raster_bwd_fused(
+                table1, pstarts_c, pcounts, np1, goff1, ckpt1, row_offset,
+                g_rgb, g_trans, trans, suffix1, torch.ones_like(trans),
+                g1_budget, *band))
+            g_all = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+        with profiling.span("fold", trans.device, request=ctx.request):
+            g_src = fold_rows_by_id(g_all, n, bool(cfg.grad_fold_bf16))
         return g_src, None, None, None, None, None, None
 
 

@@ -20,6 +20,7 @@ import torch
 from gaussiansplattingviewer_tpu_torch.config import RenderConfig, RenderMode
 from gaussiansplattingviewer_tpu_torch.models.gaussians import GaussianData
 from gaussiansplattingviewer_tpu_torch.ops.sh import eval_sh_color
+from gaussiansplattingviewer_tpu_torch.utils import profiling
 from gaussiansplattingviewer_tpu_torch.utils.transforms import quat_to_rotmat
 
 _PROJ_FIELDS = ("mean2d", "depth", "conic", "radius", "color", "opacity",
@@ -146,8 +147,19 @@ def project(scene: GaussianData, view, proj, cam_pos,
 
     view, proj: (4,4) math-convention matrices; cam_pos: (3,) world camera
     position for the SH view directions.  Matrices may be numpy or tensors;
-    they are moved to the scene's device.
+    they are moved to the scene's device.  Span ``project``; while
+    recording, the scene's gradients close span ``project_bwd``.
     """
+    with profiling.span("project", scene.xyz.device):
+        if profiling.recording():
+            scene = GaussianData(*profiling.close_in_backward(
+                "project_bwd", (scene.xyz, scene.rot, scene.scale,
+                                scene.opacity, scene.sh)))
+        return _project(scene, view, proj, cam_pos, cfg)
+
+
+def _project(scene: GaussianData, view, proj, cam_pos,
+             cfg: RenderConfig) -> ProjectedSplats:
     f32 = torch.float32
     dev = scene.xyz.device
     xyz = scene.xyz.to(f32)

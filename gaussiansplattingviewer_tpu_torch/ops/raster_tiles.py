@@ -19,6 +19,7 @@ from gaussiansplattingviewer_tpu_torch.ops import binning
 from gaussiansplattingviewer_tpu_torch.ops.blend import blend_tiles
 from gaussiansplattingviewer_tpu_torch.ops.fused import blend_fused
 from gaussiansplattingviewer_tpu_torch.ops.projection import ProjectedSplats
+from gaussiansplattingviewer_tpu_torch.utils import profiling
 
 
 def _tiles_to_image(rgb_tiles, trans_tiles, cfg: RenderConfig):
@@ -52,25 +53,30 @@ def rasterize_tiles(splats: ProjectedSplats, cfg: RenderConfig,
     on the kernels or, with ``use_kernel=False``, on the tile executor.
     The fused path's aux adds grad_rows_needed and grad_rows_dropped (0
     outside autograd), and its ``truncated`` sums both passes'
-    truncation."""
-    if cfg.fused_grad and use_kernel:
-        pres = binning.bin_splats_presort(splats, cfg)
-        rgb_tiles, trans_tiles, diag = blend_fused(
-            cfg, cfg.tiles_y, 1, pres.table_src, pres.rows_sorted,
-            pres.starts_full, 0)
-        num_dup, overflow = pres.num_duplicates, pres.overflow
-        truncated = (diag[0] + diag[1]).to(torch.int32)
-        extra = {"grad_rows_needed": diag[2], "grad_rows_dropped": diag[3]}
+    truncation.  Span ``blend``: after binning, to the composited
+    image."""
+    fused = cfg.fused_grad and use_kernel
+    if fused:
+        binned = binning.bin_splats_presort(splats, cfg)
     else:
         binned = binning.bin_splats(splats, cfg)
-        rgb_tiles, trans_tiles = blend_tiles(
-            cfg, cfg.tiles_y, 1, binned.table, binned.tile_starts,
-            binned.tile_counts, 0, use_kernel,
-        )
-        num_dup, overflow = binned.num_duplicates, binned.overflow
-        truncated, extra = binned.truncated, {}
-    img, trans = _tiles_to_image(rgb_tiles, trans_tiles, cfg)
-    img = img + cfg.background * trans[..., None]
+    with profiling.span("blend", splats.depth.device):
+        if fused:
+            rgb_tiles, trans_tiles, diag = blend_fused(
+                cfg, cfg.tiles_y, 1, binned.table_src, binned.rows_sorted,
+                binned.starts_full, 0)
+            truncated = (diag[0] + diag[1]).to(torch.int32)
+            extra = {"grad_rows_needed": diag[2],
+                     "grad_rows_dropped": diag[3]}
+        else:
+            rgb_tiles, trans_tiles = blend_tiles(
+                cfg, cfg.tiles_y, 1, binned.table, binned.tile_starts,
+                binned.tile_counts, 0, use_kernel,
+            )
+            truncated, extra = binned.truncated, {}
+        img, trans = _tiles_to_image(rgb_tiles, trans_tiles, cfg)
+        img = img + cfg.background * trans[..., None]
+    num_dup, overflow = binned.num_duplicates, binned.overflow
     if return_aux:
         aux = {
             "transmittance": trans,

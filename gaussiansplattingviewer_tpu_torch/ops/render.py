@@ -28,6 +28,7 @@ from gaussiansplattingviewer_tpu_torch.ops.raster_oracle import (
     rasterize_oracle,
 )
 from gaussiansplattingviewer_tpu_torch.ops.raster_tiles import rasterize_tiles
+from gaussiansplattingviewer_tpu_torch.utils import profiling
 
 Backend = Literal["kernel", "tile", "oracle"]
 BACKENDS = get_args(Backend)  # the apps' --backend choices
@@ -47,12 +48,13 @@ def resolve_device(device=None) -> torch.device:
 
 def _render(scene, view, proj, cam_pos, cfg, backend, device, return_aux):
     dev = resolve_device(device)
-    splats = project(scene.to(dev), view, proj, cam_pos, cfg)
-    if backend == "oracle":
-        return rasterize_oracle(splats, cfg, return_aux=return_aux)
-    if backend in ("kernel", "tile"):
-        return rasterize_tiles(splats, cfg, return_aux=return_aux,
-                               use_kernel=backend == "kernel")
+    with profiling.span("render", dev, new_request=True):
+        splats = project(scene.to(dev), view, proj, cam_pos, cfg)
+        if backend == "oracle":
+            return rasterize_oracle(splats, cfg, return_aux=return_aux)
+        if backend in ("kernel", "tile"):
+            return rasterize_tiles(splats, cfg, return_aux=return_aux,
+                                   use_kernel=backend == "kernel")
     raise ValueError(f"unknown backend {backend!r}")
 
 

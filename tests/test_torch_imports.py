@@ -68,7 +68,8 @@ NEW_MODULES = {
     "gaussiansplattingviewer_tpu_torch.apps.serve": (
         "ViewerState", "build_state", "make_handler", "main"),
     "gaussiansplattingviewer_tpu_torch.utils.profiling": (
-        "trace", "hard_sync", "FrameTimer", "render_stats"),
+        "trace", "hard_sync", "FrameTimer", "render_stats", "span", "count",
+        "collect"),
     "gaussiansplattingviewer_tpu_torch.utils.camera": (
         "Camera", "sphere_orbit_pose", "sphere_orbit_path"),
     "gaussiansplattingviewer_tpu_torch.utils.transforms": (
