@@ -7,7 +7,8 @@ on one CUDA card.
 Phases, each fatal on failure:
   1. card identity (nvidia-smi name and power limit);
   2. build every CUDA kernel from csrc/ (one nvcc per source, started
-     together), print nvcc's -Xptxas -v report and, per kernel (B1, B2,
+     together; P1 and P2 from projection.cu among them), print nvcc's
+     -Xptxas -v report and, per kernel (B1, B2,
      B4 in both variants, B3, B5; B1, B2, B4 inference and B3 also at
      tiles 8 and 32) and mode, its registers, spills, shared memory per CTA
      and CTAs per SM as built;
@@ -66,8 +67,15 @@ Phases, each fatal on failure:
      each), serve --gs-model answering one /render, and
      eval.compare_backends kernel against oracle on the golden scene;
   9. the garden cell, the JAX bench.py garden workload: 5.8M splats, SH-3,
-     1920x1080, config from autotune(probe=True, fused=None) (forced fused
-     if the tuner declines).  5 fused training steps (sum(img^2), SGD)
+     1920x1080.  First the projection kernels on its scene: project() and
+     its backward under seeded random cotangents launch P1 and P2 once
+     each and count the scene's splats in ``project.kernel_splats``, their
+     outputs held to the plain ``_project`` on the card (mean2d, depth,
+     conic, radius, valid bit for bit, colour within 1e-5) and their
+     gradients to its autograd (1e-4 of each leaf's largest); P1 and P2
+     alone against the plain forward and backward, P2 twice bit for bit.
+     Then the rendering, config from autotune(probe=True, fused=None)
+     (forced fused if the tuner declines).  5 fused training steps (sum(img^2), SGD)
      with CUDA-event stage times and launch counts (B2 1, B4 1, B5 2 per
      step), 5 classic steps on the same scene and pose, fused (K = 0 and
      the tuned K) against classic gradients with the f32 fold and classic
@@ -81,9 +89,9 @@ Phases, each fatal on failure:
      of the kernel route against it on the same card, its toy case (B1,
      B2, B3) and its 500k-splat 1920x1080 fused case (B2, B4, B5), within
      tpu_gradcheck.py's thresholds; the 1M scene at 1920x1080 served once
-     and trained one step through backend="tile" (no kernel launches, the
-     frame within 5e-4 of the kernel route's), its frame and step ms read
-     beside the card's name and power limit;
+     and trained one step through backend="tile" (no blend kernel
+     launches, the frame within 5e-4 of the kernel route's), its frame and
+     step ms read beside the card's name and power limit;
  10. the JAX repository's measurement entry points as the port's modules,
      each run as a subprocess from the repository's root: ``python -m
      gaussiansplattingviewer_tpu_torch.bench`` with its defaults (the 1M
@@ -98,8 +106,11 @@ Phases, each fatal on failure:
      beside the card;
  11. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
-Each kernel's bound_ms counts the fragments this run's data needs: the
-pixels inside each blended row's rect (fragments_needed).
+Each blend kernel's bound_ms counts the fragments this run's data needs:
+the pixels inside each blended row's rect (fragments_needed); P1's and
+P2's the bytes they move per splat (281 and 508).  Every phase's launch
+counts include P1 (once per projection, so once per frame or step, under
+every backend) and P2 (once per backward through it).
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
@@ -137,6 +148,9 @@ FLOPS_PER_FRAGMENT = 30
 # + 3 for cx, cy, A, B, C, 3 for rgb, and 9 adds of the pixel reduction
 FLOPS_PER_FRAGMENT_B3 = 73
 BLEND_ATTR_BYTES = 11 * 4  # table rows read per splat row (cx .. ry)
+# FP32 operations per splat of projection and SH-3 (P1), as
+# benchmark/roofline.py's PROJECT_FLOPS counts them; P2 twice that
+PROJECT_FLOPS = 390
 # B4 does B1/B2's fragment work, B5 B3's (csrc/*.cu: template variants)
 
 GOLDEN_DIR = Path(__file__).resolve().parent / "tests" / "goldens"
@@ -204,7 +218,8 @@ class Checks:
     largest absolute difference."""
 
     def __init__(self):
-        self.err = {k: 0.0 for k in ("B1", "B2", "B3", "B4", "B5")}
+        self.err = {k: 0.0 for k in ("B1", "B2", "B3", "B4", "B5", "P1",
+                                     "P2")}
 
     def _record(self, kernel, tag, err, tol):
         self.err[kernel] = max(self.err.get(kernel, 0.0), err)
@@ -219,6 +234,12 @@ class Checks:
         tol = 1e-5 * max(1.0, float(want.abs().max()) if want.numel()
                          else 0.0)
         self._record(kernel, tag, err, tol)
+
+    def scaled(self, kernel, tag, got, want, rel):
+        """Within rel * max|plain|: a gradient, whose largest entries set
+        its scale."""
+        err = float((got - want).abs().max())
+        self._record(kernel, tag, err, rel * float(want.abs().max()))
 
     def equal(self, kernel, tag, got, want):
         """Bit for bit: integers and sequential products."""
@@ -737,7 +758,8 @@ def trained_at_tile(chk, zero_counts, counts, no_launch, scene, view, proj,
         log(f"{tag} device kernel time {device_ms:.3f} ms/step (profiler) "
             f"-> busy {device_ms / ms_step:.3f}, idle "
             f"{1 - device_ms / ms_step:.3f} of the unprofiled step")
-    want = {**no_launch, "B2": TRAIN_STEPS, "B3": TRAIN_STEPS}
+    want = {**no_launch, "B2": TRAIN_STEPS, "B3": TRAIN_STEPS,
+            "P1": TRAIN_STEPS, "P2": TRAIN_STEPS}
     if out["counts"] != want:
         raise AssertionError(f"tile {ts}: {TRAIN_STEPS} steps launched "
                              f"{out['counts']}")
@@ -751,6 +773,103 @@ def trained_at_tile(chk, zero_counts, counts, no_launch, scene, view, proj,
             raise AssertionError(f"tile {ts}: the {name} gradient is zero "
                                  f"or not finite")
     return out
+
+
+def projection_cell(chk, zero_counts, counts, no_launch, scene, view, proj,
+                    eye, cfg):
+    """Phase 9a: kernels P1 and P2 on the garden scene.  project() on
+    leaves that need gradients, under seeded random cotangents on its five
+    float outputs, launches P1 and P2 once each and counts the scene's
+    splats in ``project.kernel_splats``; its mean2d, depth, conic, radius
+    and valid equal the plain ``_project``'s on the same card bit for bit,
+    its colour within 1e-5, its gradients autograd's through ``_project``
+    within 1e-4 of each leaf's largest.  P1 and P2 alone (CUDA events, P2
+    also against its own second launch, bit for bit) beside the plain
+    forward and backward (host clock), their bounds from the bytes they
+    move.  Returns their numbers."""
+    from gaussiansplattingviewer_tpu_torch.models import GaussianData
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import projection as kp
+    from gaussiansplattingviewer_tpu_torch.ops.projection import (
+        _project,
+        project,
+    )
+    from gaussiansplattingviewer_tpu_torch.utils import profiling
+
+    dev, n = scene.xyz.device, len(scene)
+    camera = [torch.as_tensor(m, dtype=torch.float32, device=dev)
+              for m in (view, proj, eye)]
+    outs = ("mean2d", "depth", "conic", "radius", "color")
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    cots = [torch.randn(shape, generator=gen).to(dev)
+            for shape in ((n, 2), (n,), (n, 3), (n, 2), (n, 3))]
+
+    def through(fn):
+        leaves = [getattr(scene, f).detach().clone().requires_grad_(True)
+                  for f in FIELDS]
+        out = fn(GaussianData(*leaves), *camera, cfg)
+        sum((getattr(out, f) * c).sum() for f, c in zip(outs, cots)
+            ).backward()
+        return out, [t.grad for t in leaves]
+
+    zero_counts()
+    with profiling.collect() as rec:
+        got, g_got = through(project)
+    launched = counts()
+    counted = rec.counts.get("project.kernel_splats")
+    log(f"[project] {n} splats SH{scene.sh_degree} {cfg.width}x{cfg.height}"
+        f" through project() and backward: launches {launched}, "
+        f"project.kernel_splats {counted}")
+    if launched != {**no_launch, "P1": 1, "P2": 1} or counted != n:
+        raise AssertionError("project() did not run P1 and P2 once each")
+    want, g_want = through(_project)
+    for f in ("mean2d", "depth", "conic", "radius", "valid"):
+        chk.equal("P1", f"garden project() {f}", getattr(got, f),
+                  getattr(want, f))
+    chk.close("P1", "garden project() color", got.color.detach(),
+              want.color.detach())
+    for f, a, b in zip(FIELDS, g_got, g_want):
+        if b is None or a is None:
+            if (a is None) != (b is None):
+                raise AssertionError(f"P2: the {f} gradient is "
+                                     f"{'missing' if a is None else 'extra'}")
+            continue
+        chk.scaled("P2", f"garden project() backward grad {f}", a, b, 1e-4)
+    del got, want, g_got, g_want
+
+    leaves = [getattr(scene, f).detach().contiguous() for f in FIELDS]
+    with torch.no_grad():
+        kp.project_fwd(*leaves, *camera, cfg)  # warm-up
+        ms_p1, fwd = cuda_ms(lambda: kp.project_fwd(*leaves, *camera, cfg),
+                             10)
+        plain_p1, _ = host_ms(lambda: _project(scene, *camera, cfg))
+    kp.project_bwd(*leaves, *camera, cfg, cots)  # warm-up
+    ms_p2, grads = cuda_ms(lambda: kp.project_bwd(*leaves, *camera, cfg,
+                                                  cots), 10)
+    for f, a, b in zip(("xyz", "rot", "scale", "sh"), grads,
+                       kp.project_bwd(*leaves, *camera, cfg, cots)):
+        chk.equal("P2", f"garden P2 repeat grad {f}", a, b)
+    need = [getattr(scene, f).detach().clone().requires_grad_(True)
+            for f in ("xyz", "rot", "scale", "sh")]
+    plain = _project(GaussianData(need[0], need[1], need[2], scene.opacity,
+                                  need[3]), *camera, cfg)
+    plain_p2, _ = host_ms(lambda: torch.autograd.grad(
+        [getattr(plain, f) for f in outs], need, cots))
+    del plain, need
+    log(f"[project] alone (CUDA events): P1 {ms_p1:.3f} ms, P2 "
+        f"{ms_p2:.3f} ms; plain (host clock): forward {plain_p1:.3f} ms, "
+        f"backward {plain_p2:.3f} ms")
+    # P1 reads the five leaves and writes its six outputs; P2 reads xyz,
+    # rot, scale, sh and the five cotangents and writes four gradients
+    leaf_bytes = sum(t.numel() * 4 for t in leaves)
+    out_bytes = sum(t.numel() * t.element_size() for t in fwd)
+    cot_bytes = sum(t.numel() * 4 for t in cots)
+    grad_bytes = sum(t.numel() * 4 for t in grads)
+    bound_p1 = bound("P1", n * PROJECT_FLOPS, leaf_bytes + out_bytes)
+    bound_p2 = bound("P2", 2 * n * PROJECT_FLOPS,
+                     leaf_bytes - leaves[3].numel() * 4 + cot_bytes
+                     + grad_bytes)
+    return {"ms_p1": ms_p1, "ms_p1_plain": plain_p1, "bound_p1": bound_p1,
+            "ms_p2": ms_p2, "ms_p2_plain": plain_p2, "bound_p2": bound_p2}
 
 
 def garden_cell(chk, zero_counts, counts, no_launch):
@@ -788,8 +907,12 @@ def garden_cell(chk, zero_counts, counts, no_launch):
     log(f"[garden] scene of {len(scene)} splats made in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    t0 = time.perf_counter()
     cfg0 = RenderConfig(width=GARDEN_W, height=GARDEN_H)
+    projected = projection_cell(chk, zero_counts, counts, no_launch, scene,
+                                view, proj, eye, cfg0)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     cfg = autotune(scene, [view], [proj], [eye], cfg0, probe=True,
                    fused=None)
     log(f"[garden] autotune(probe=True, fused=None) in "
@@ -818,9 +941,9 @@ def garden_cell(chk, zero_counts, counts, no_launch):
     out = {}
     for name, c, staged, stages, want in (
             ("fused", cfg, fused_staged_step, FUSED_STAGES,
-             {**no_launch, "B2": 1, "B4": 1, "B5": 2}),
+             {**no_launch, "B2": 1, "B4": 1, "B5": 2, "P1": 1, "P2": 1}),
             ("classic", classic, classic_staged_step, CLASSIC_STAGES,
-             {**no_launch, "B2": 1, "B3": 1})):
+             {**no_launch, "B2": 1, "B3": 1, "P1": 1, "P2": 1})):
         for _ in range(2):  # warm-up
             sgd_step(sc, params, view, proj, eye, c)
         torch.cuda.synchronize()
@@ -945,7 +1068,7 @@ def garden_cell(chk, zero_counts, counts, no_launch):
     got = counts()
     log(f"[garden] fused serving frames {[f'{m:.3f}' for m in frame_ms]} ms"
         f" -> {float(np.mean(frame_ms)):.3f} ms/frame, launches {got}")
-    if got != {**no_launch, "B1": 3, "B4": 3}:
+    if got != {**no_launch, "B1": 3, "B4": 3, "P1": 3}:
         raise AssertionError(f"garden serving launched {got}")
     img_np = img.cpu().numpy()
     if img_np.shape != (GARDEN_H, GARDEN_W, 3) \
@@ -1034,7 +1157,7 @@ def garden_cell(chk, zero_counts, counts, no_launch):
     b5 = bound("B5 (both launches)",
                (frags["pass 1"] + frags["pass 2"]) * FLOPS_PER_FRAGMENT_B3,
                b5_bytes)
-    return {"counts": out["fused"], "ms_b4": ms_b4,
+    return {**projected, "counts": out["fused"], "ms_b4": ms_b4,
             "ms_b4_plain": ms_b4_plain, "bound_b4": bound_b4,
             "ms_b5": ms_b5, "ms_b5_plain": ms_b5_plain,
             "bound_b5": (b5[0] / 2, b5[1])}
@@ -1176,9 +1299,9 @@ def sharded_cell(chk, zero_counts, counts, no_launch, scene, view, proj, eye,
                 f"{bool(torch.equal(img, want))}, pixels differing "
                 f"{int((img != want).any(dim=-1).sum())}, launches "
                 f"{launched}")
-            if launched != {**no_launch, "B1": SHARDS}:
+            if launched != {**no_launch, "B1": SHARDS, "P1": SHARDS}:
                 raise AssertionError(f"sharded {name}: launches {launched},"
-                                     f" want B1 {SHARDS}")
+                                     f" want B1 and P1 {SHARDS}")
             if not err <= tol_c:
                 raise AssertionError(f"sharded {name} ({tag}): bands "
                                      f"disagree with render()")
@@ -1229,7 +1352,8 @@ def sharded_cell(chk, zero_counts, counts, no_launch, scene, view, proj, eye,
         crop = band[live, :cfg.width]
         (crop * crop).sum().backward()
     got = counts()
-    if got != {**no_launch, "B2": SHARDS, "B3": SHARDS}:
+    if got != {**no_launch, "B2": SHARDS, "B3": SHARDS, "P1": SHARDS,
+               "P2": SHARDS}:
         raise AssertionError(f"sharded gradients: launches {got}")
     g_bands = grads_of([getattr(sc, f) for f in FIELDS])
     g_single = []
@@ -1281,7 +1405,7 @@ def sharded_cell(chk, zero_counts, counts, no_launch, scene, view, proj, eye,
             if not losses[-1] < losses[0]:
                 raise AssertionError(f"NCCL step {name}: the loss did not "
                                      f"fall")
-            if got != {**no_launch, "B2": 3, "B3": 3}:
+            if got != {**no_launch, "B2": 3, "B3": 3, "P1": 3, "P2": 3}:
                 raise AssertionError(f"NCCL step {name}: launches {got}")
             del sc, opt
     finally:
@@ -1409,7 +1533,7 @@ def served_at_tile(chk, zero_counts, counts, no_launch, scene, view, proj,
                 lambda: render_with_aux(scene, view, proj, eye, cfg))
             frame_ms.append(ms)
         out["launches"] = counts()["B1"]
-        if counts() != {**no_launch, "B1": 3}:
+        if counts() != {**no_launch, "B1": 3, "P1": 3}:
             raise AssertionError(f"tile {ts}: 3 frames launched {counts()}")
         img_np = img.cpu().numpy()
         if img_np.shape != (FULL_H, FULL_W, 3) \
@@ -1476,7 +1600,7 @@ def fused_served_at_tile(chk, zero_counts, counts, no_launch, scene, view,
                 lambda: render_with_aux(scene, view, proj, eye, cf))
             fused_ms.append(ms)
         out["b4_launches"] = counts()["B4"]
-        if counts() != {**no_launch, "B1": 2, "B4": 2}:
+        if counts() != {**no_launch, "B1": 2, "B4": 2, "P1": 2}:
             raise AssertionError(f"tile {ts}: 2 fused frames launched "
                                  f"{counts()}")
         if int(faux["truncated"]):
@@ -1533,8 +1657,9 @@ def colmap_dir(path, n, dist):
 
 
 def run_app(main, argv, zero_counts, counts, no_launch, want_b1, tag):
-    """One app through its main(argv): exit 0 and B1 launched want_b1
-    times; returns (seconds, captured stderr)."""
+    """One app through its main(argv): exit 0 and B1 and P1 (one
+    projection per frame) launched want_b1 times; returns (seconds,
+    captured stderr)."""
     err = io.StringIO()
     zero_counts()
     t0 = time.perf_counter()
@@ -1548,8 +1673,9 @@ def run_app(main, argv, zero_counts, counts, no_launch, want_b1, tag):
     log(f"[apps] {tag}: rc {rc} in {secs:.3f} s, launches {got}")
     if rc != 0:
         raise AssertionError(f"{tag} exited {rc}")
-    if got != {**no_launch, "B1": want_b1}:
-        raise AssertionError(f"{tag}: launches {got}, want B1 {want_b1}")
+    if got != {**no_launch, "B1": want_b1, "P1": want_b1}:
+        raise AssertionError(f"{tag}: launches {got}, want B1 and P1 "
+                             f"{want_b1}")
     return secs, err.getvalue()
 
 
@@ -1688,7 +1814,7 @@ def apps_cell(chk, zero_counts, counts, no_launch, work, scene_dir, golden,
         timer = profiling.FrameTimer(frame, pixels=FULL_W * FULL_H,
                                      splats=len(scene))
         stats = timer.run(iters=5, warmup=2)
-        if counts() != {**no_launch, "B1": 7}:
+        if counts() != {**no_launch, "B1": 7, "P1": 7}:
             raise AssertionError(f"FrameTimer launches {counts()}")
         trace_dir = Path("chiprun_out") / "chip_smoke_viewer_trace"
         with profiling.trace(str(trace_dir)) as prof:
@@ -1800,7 +1926,7 @@ def apps_cell(chk, zero_counts, counts, no_launch, work, scene_dir, golden,
     log(f"[apps] serve --gs-model ({len(state.scene)} splats): GET /render "
         f"-> {status}, {len(body)} B, {ms:.1f} ms, launches {counts()}")
     if status != 200 or body[:8] != b"\x89PNG\r\n\x1a\n" \
-            or counts() != {**no_launch, "B1": 1}:
+            or counts() != {**no_launch, "B1": 1, "P1": 1}:
         raise AssertionError("serve --gs-model did not render through B1")
     del state
 
@@ -1846,7 +1972,8 @@ def tile_executor_cell(zero_counts, counts, no_launch, scene, view, proj,
     fused case (B1, B2, B4 and B5), each within tpu_gradcheck.py's
     thresholds; then the 1M bench scene at full size served once and
     trained one step (bench.py's step) through backend="tile", launching
-    no kernel: the frame against the kernel route's within the parity
+    no blend kernel (projection runs P1 and P2 under every backend): the
+    frame against the kernel route's within the parity
     check's forward tolerance, the step's loss and gradients finite, the
     plain executor's frame and step ms (read, not gated) and its chunk
     steps beside the card."""
@@ -1857,11 +1984,14 @@ def tile_executor_cell(zero_counts, counts, no_launch, scene, view, proj,
 
     t_phase = time.perf_counter()
     # the kernel route's launches: a frame (B1; fused, B1 and B4) and a
-    # gradient (B2, B3; fused, B2, B4 and B5 twice)
+    # gradient (B2, B3; fused, B2, B4 and B5 twice); both routes project
+    # on the card: P1 for each of the 4 renders, P2 for the 2 backwards
     for name, case, need in (
-            ("toy", gradcheck.TOY, {**no_launch, "B1": 1, "B2": 1, "B3": 1}),
+            ("toy", gradcheck.TOY,
+             {**no_launch, "B1": 1, "B2": 1, "B3": 1, "P1": 4, "P2": 2}),
             ("bench scale", gradcheck.BENCH_SCALE,
-             {**no_launch, "B1": 1, "B2": 1, "B4": 2, "B5": 2})):
+             {**no_launch, "B1": 1, "B2": 1, "B4": 2, "B5": 2, "P1": 4,
+              "P2": 2})):
         zero_counts()
         printed = io.StringIO()
         t0 = time.perf_counter()
@@ -1924,7 +2054,7 @@ def tile_executor_cell(zero_counts, counts, no_launch, scene, view, proj,
         f"{loss:.6g}; max|frame - kernel frame| {diff:.3e} (tol "
         f"{gradcheck.BS_FWD_TOL}); kernel launches {got}; {smi}")
     img_np = img.cpu().numpy()
-    if got != no_launch:
+    if got != {**no_launch, "P1": 2, "P2": 1}:
         raise AssertionError(f"the tile executor launched {got}")
     if img_np.shape != (cfg.height, cfg.width, 3) \
             or not np.isfinite(img_np).all() or not img_np.std() > 0.01:
@@ -2073,6 +2203,7 @@ def main() -> int:
     )
     from gaussiansplattingviewer_tpu_torch.ops import binning
     from gaussiansplattingviewer_tpu_torch.ops.kernels import build
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import projection as kp
     from gaussiansplattingviewer_tpu_torch.ops.kernels import (
         tile_raster_bwd as b3,
     )
@@ -2096,7 +2227,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     counters = {"B1": b1.tile_raster_fwd, "B2": b1.tile_raster_fwd_train,
                 "B3": b3.tile_raster_bwd, "B4": b1.tile_raster_fwd_seeded,
-                "B5": b3.tile_raster_bwd_fused}
+                "B5": b3.tile_raster_bwd_fused, "P1": kp.project_fwd,
+                "P2": kp.project_bwd}
     no_launch = {k: 0 for k in counters}
 
     def zero_counts():
@@ -2118,7 +2250,7 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---- 2. build (all sources at once)
-    kernels = ["tile_raster_fwd", "tile_raster_bwd"]
+    kernels = ["tile_raster_fwd", "tile_raster_bwd", "projection"]
     t0 = time.perf_counter()
     built = build.build(kernels)
     log(f"[build] {len(built)} of {len(kernels)} built in "
@@ -2310,7 +2442,7 @@ def main() -> int:
     log(f"[full] num_duplicates {int(aux['num_duplicates'])}, truncated "
         f"{int(aux['truncated'])}, overflow {int(aux['overflow'])}, peak "
         f"memory {peak_gib:.3f} GiB, launches {serve_counts}")
-    if serve_counts != {**no_launch, "B1": 3}:
+    if serve_counts != {**no_launch, "B1": 3, "P1": 3}:
         raise AssertionError(f"3 frames launched {serve_counts}")
     img_np = img.cpu().numpy()
     if img_np.shape != (FULL_H, FULL_W, 3) or not np.isfinite(img_np).all():
@@ -2367,8 +2499,9 @@ def main() -> int:
         f"{trainer_counts}")
     if rc != 0 or "final_psnr_db" not in out.getvalue():
         raise AssertionError("the trainer CLI failed")
-    if trainer_counts["B2"] != 3 or trainer_counts["B3"] != 3:
-        raise AssertionError("the trainer's steps missed B2/B3")
+    if trainer_counts["B2"] != 3 or trainer_counts["B3"] != 3 \
+            or trainer_counts["P2"] != 3 or trainer_counts["P1"] < 3:
+        raise AssertionError("the trainer's steps missed B2/B3/P1/P2")
 
     # ---- 7. the serve app
     args = serve.build_parser().parse_args(
@@ -2401,7 +2534,7 @@ def main() -> int:
         thread.join(timeout=30)
     app_counts = counts()
     log(f"[serve] launches for 3 renders: {app_counts}")
-    if app_counts != {**no_launch, "B1": 3}:
+    if app_counts != {**no_launch, "B1": 3, "P1": 3}:
         raise AssertionError("serve renders did not go through B1 alone")
 
     # ---- 8. the sharded cell
@@ -2434,11 +2567,13 @@ def main() -> int:
     # ---- 11. kernels line, card line, result
     fwd_src = "gaussiansplattingviewer_tpu_torch/csrc/tile_raster_fwd.cu"
     bwd_src = "gaussiansplattingviewer_tpu_torch/csrc/tile_raster_bwd.cu"
+    proj_src = "gaussiansplattingviewer_tpu_torch/csrc/projection.cu"
     pallas = "gaussiansplattingviewer_tpu/ops/pallas/"
 
     def entry(name, src, replaces, key, launches, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": src,
-                "replaces": pallas + replaces, "launches": launches,
+                "replaces": pallas + replaces if replaces else None,
+                "launches": launches,
                 "max_abs_err": chk.err[key], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
@@ -2477,6 +2612,12 @@ def main() -> int:
         entry("tile_raster_bwd_fused", bwd_src, "tile_raster_bwd.py:536",
               "B5", g["counts"]["B5"], g["ms_b5"], g["ms_b5_plain"],
               g["bound_b5"]),
+        # P1 and P2 replace no Pallas kernel: the JAX package projects in
+        # XLA
+        entry("project_fwd", proj_src, None, "P1", g["counts"]["P1"],
+              g["ms_p1"], g["ms_p1_plain"], g["bound_p1"]),
+        entry("project_bwd", proj_src, None, "P2", g["counts"]["P2"],
+              g["ms_p2"], g["ms_p2_plain"], g["bound_p2"]),
         *per_tile,
     ]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -3,7 +3,9 @@
 A torch copy of the JAX package's projection with the same order of
 operations and the same constants: the 1.3x fov clamp, the +0.3 px
 low-pass, the |ndc| > 1.3 cull, the 3-sigma quad extent, and DEPTH mode's
-x1.2 scale inflate and baseline-shift disparity.
+x1.2 scale inflate and baseline-shift disparity.  On a CUDA device
+``project`` runs the same arithmetic as two hand-written kernels
+(``ops/kernels/projection.py``); ``_project`` is the plain version.
 
 Frames: p_clip = P @ V @ p_world (math matrices); the image frame is x
 right, y DOWN, origin at the top-left pixel corner; the conic is stored in
@@ -19,6 +21,9 @@ import torch
 
 from gaussiansplattingviewer_tpu_torch.config import RenderConfig, RenderMode
 from gaussiansplattingviewer_tpu_torch.models.gaussians import GaussianData
+from gaussiansplattingviewer_tpu_torch.ops.kernels.projection import (
+    ProjectKernels,
+)
 from gaussiansplattingviewer_tpu_torch.ops.sh import eval_sh_color
 from gaussiansplattingviewer_tpu_torch.utils import profiling
 from gaussiansplattingviewer_tpu_torch.utils.transforms import quat_to_rotmat
@@ -147,7 +152,9 @@ def project(scene: GaussianData, view, proj, cam_pos,
 
     view, proj: (4,4) math-convention matrices; cam_pos: (3,) world camera
     position for the SH view directions.  Matrices may be numpy or tensors;
-    they are moved to the scene's device.  Span ``project``; while
+    they are moved to the scene's device.  A scene on a CUDA device goes
+    through kernels P1 and P2 (``ops/kernels/projection.py``), one on the
+    CPU through the plain ``_project``.  Span ``project``; while
     recording, the scene's gradients close span ``project_bwd``.
     """
     with profiling.span("project", scene.xyz.device):
@@ -155,7 +162,30 @@ def project(scene: GaussianData, view, proj, cam_pos,
             scene = GaussianData(*profiling.close_in_backward(
                 "project_bwd", (scene.xyz, scene.rot, scene.scale,
                                 scene.opacity, scene.sh)))
+        if scene.xyz.device.type == "cuda":
+            return _project_kernels(scene, view, proj, cam_pos, cfg)
         return _project(scene, view, proj, cam_pos, cfg)
+
+
+def _project_kernels(scene: GaussianData, view, proj, cam_pos,
+                     cfg: RenderConfig) -> ProjectedSplats:
+    f32 = torch.float32
+    dev = scene.xyz.device
+    leaves = [a.to(f32).contiguous() for a in (
+        scene.xyz, scene.rot, scene.scale, scene.opacity, scene.sh)]
+    camera = [torch.as_tensor(m, dtype=f32, device=dev).contiguous()
+              for m in (view, proj, cam_pos)]
+    mean2d, depth, conic, radius, color, valid = ProjectKernels.apply(
+        *leaves, *camera, cfg)
+    return ProjectedSplats(
+        mean2d=mean2d,
+        depth=depth,
+        conic=conic,
+        radius=radius,
+        color=color,
+        opacity=scene.opacity[..., 0].to(f32),
+        valid=valid,
+    )
 
 
 def _project(scene: GaussianData, view, proj, cam_pos,
@@ -215,11 +245,10 @@ def _project(scene: GaussianData, view, proj, cam_pos,
     if mode == RenderMode.DEPTH:
         color = _disparity_color(xyz, view, proj, cfg, ndc)
     else:
-        sh_degree = mode if mode >= 0 else 0  # billboard/ball modes: DC only
         dir = xyz - cam_pos
         norm = torch.linalg.norm(dir, dim=-1, keepdim=True)
         dir = dir / torch.maximum(norm, torch.full_like(norm, 1e-12))
-        color = eval_sh_color(scene.sh.to(f32), dir, sh_degree,
+        color = eval_sh_color(scene.sh.to(f32), dir, mode,
                               clamp=cfg.clamp_color)
 
     depth = -mean_view[..., 2]

@@ -10,6 +10,9 @@ Backends:
   * "oracle": global-sort full-image blend (ops/raster_oracle.py), the
     ground truth for small scenes.
 
+On a card every backend projects through kernels P1 and P2
+(``ops/kernels/projection.py``); on the CPU through the plain version.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise instead of carrying on on the CPU.
 """

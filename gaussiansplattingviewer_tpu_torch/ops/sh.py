@@ -61,14 +61,20 @@ def sh_basis(dir: torch.Tensor, degree: int) -> torch.Tensor:
     return torch.stack(basis, dim=-1)
 
 
+def used_degree(degree: int, sh_width: int) -> int:
+    """The SH degree a colour reads from K = ``sh_width`` interleaved
+    coefficients: min(degree, stored degree, 3), where a negative degree
+    (the billboard and ball modes) reads the DC band alone."""
+    stored_degree = int(round((sh_width // 3) ** 0.5)) - 1
+    return min(max(degree, 0), stored_degree, 3)
+
+
 def eval_sh_color(sh: torch.Tensor, dir: torch.Tensor, degree: int,
                   clamp: bool = True) -> torch.Tensor:
     """RGB (..., 3) from interleaved SH coefficients (..., K) and unit view
-    directions (..., 3); bands beyond ``degree`` or the stored ones are
+    directions (..., 3); bands beyond ``used_degree(degree, K)`` are
     ignored.  ``clamp`` clamps at 0 after the +0.5 offset."""
-    n_coeff_stored = sh.shape[-1] // 3
-    stored_degree = int(round(n_coeff_stored ** 0.5)) - 1
-    deg = min(degree, stored_degree, 3)
+    deg = used_degree(degree, sh.shape[-1])
     n_coeff = (deg + 1) ** 2
     basis = sh_basis(dir, deg)
     coeffs = sh[..., : 3 * n_coeff].reshape(sh.shape[:-1] + (n_coeff, 3))

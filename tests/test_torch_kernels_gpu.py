@@ -868,3 +868,193 @@ def test_band_programs_on_card_match_render(interleaved):
         assert b1.tile_raster_fwd.launches == before + n
     tol = 1e-5 * max(1.0, float(ref.abs().max()))
     assert float((out - ref).abs().max()) <= tol
+
+
+def _projection_case(dev, mode, stored_degree, n=4000, seed=21):
+    """A scene for P1/P2 against the plain ``_project`` on the card, with
+    padding splats (opacity 0 at the origin, as the benchmark pads),
+    splats behind the camera and splats outside the 1.3-ndc cull; splats
+    within 1e-5 of a cull threshold (|ndc| at the limit, w at 1e-8) are
+    taken out, so that ``valid`` compares exactly."""
+    from gaussiansplattingviewer_tpu_torch.models import GaussianData
+
+    cfg = RenderConfig(width=320, height=192, mode=mode)
+    s = random_scene(n, sh_degree=stored_degree, seed=seed, extent=2.0,
+                     mean_scale=0.05)
+    xyz, opacity = s.xyz.clone(), s.opacity.clone()
+    # behind the eye (z = 5), clear of its plane: there w is a difference
+    # of nearly equal terms, whose last bits depend on the sum's order
+    xyz[: n // 10, 2] = 7.0 + 0.5 * xyz[: n // 10, 2]
+    xyz[n // 10: n // 5, 0] *= 6.0  # many outside the cull
+    pad = slice(n - n // 10, n)
+    xyz[pad] = 0.0
+    opacity[pad] = 0.0
+    rot, scale = s.rot.clone(), s.scale.clone()
+    rot[pad] = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    scale[pad] = 1e-9
+    sh = s.sh.clone()
+    sh[pad] = 0.0
+    scene = GaussianData(xyz, rot, scale, opacity, sh).to(dev)
+    cam = Camera(h=cfg.height, w=cfg.width)
+    cam.fovy = 1.0
+    eye = np.array([0.3, -0.2, 5.0], np.float32)
+    camera = [torch.as_tensor(m, dtype=torch.float32, device=dev)
+              for m in (tf.look_at(eye, [0, 0, 0], [0, -1, 0]),
+                        cam.get_project_matrix(), eye)]
+    # the margins, in float64 from the plain path's own view and clip
+    v, p = camera[0].double(), camera[1].double()
+    mv = scene.xyz.double() @ v[:3, :3].T + v[:3, 3]
+    clip = torch.cat([mv, torch.ones_like(mv[:, :1])], 1) @ p.T
+    ndc = clip[:, :3] / clip[:, 3:]
+    # (det needs no margin: the +0.3 low-pass keeps it above 0.09)
+    far = ((ndc.abs() - cfg.ndc_cull_limit).abs().min(1).values > 1e-5) \
+        & ((clip[:, 3] - 1e-8).abs() > 1e-5)
+    keep = far.nonzero()[:, 0]
+    scene = GaussianData(*(getattr(scene, f)[keep].contiguous() for f in
+                           ("xyz", "rot", "scale", "opacity", "sh")))
+    return cfg, scene, camera
+
+
+_PROJ_OUT = ("mean2d", "depth", "conic", "radius", "color")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stored_degree", [0, 1, 2, 3])
+@pytest.mark.parametrize("mode", list(RenderMode))
+def test_project_kernel_matches_plain(mode, stored_degree):
+    """P1 against the plain ``_project`` on the card, every mode and SH
+    stored at degrees 0-3: floats within 1e-5 of each field's largest
+    magnitude (the view transform's and the SH sums' order differs),
+    ``valid`` exactly; the scene holds padding, splats behind the camera
+    and splats outside the cull."""
+    from gaussiansplattingviewer_tpu_torch.ops.projection import _project
+    from gaussiansplattingviewer_tpu_torch.ops.sh import used_degree
+
+    dev = _card()
+    cfg, scene, camera = _projection_case(dev, mode, stored_degree)
+    want = _project(scene, *camera, cfg)
+    got = project(scene, *camera, cfg)
+    torch.cuda.synchronize()
+    assert 0 < int(want.valid.sum()) < len(scene) * 0.8
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(got.opacity, want.opacity)
+    for f in _PROJ_OUT:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+        tol = 1e-5 * float(b.abs().max())
+        assert float((a - b).abs().max()) <= tol, (mode, f)
+    assert used_degree(int(mode), scene.sh.shape[1]) == min(
+        max(int(mode), 0), stored_degree)
+
+
+def _projection_grads(scene, camera, cfg, cots, plain):
+    from gaussiansplattingviewer_tpu_torch.models import GaussianData
+    from gaussiansplattingviewer_tpu_torch.ops.projection import _project
+
+    leaves = [getattr(scene, f).clone().requires_grad_(True)
+              for f in ("xyz", "rot", "scale", "opacity", "sh")]
+    fn = _project if plain else project
+    out = fn(GaussianData(*leaves), *camera, cfg)
+    sum((getattr(out, f) * c).sum()
+        for f, c in zip((*_PROJ_OUT, "opacity"), cots)).backward()
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", list(RenderMode))
+def test_project_kernel_gradients_match_plain(mode):
+    """P2 under random cotangents on all five float outputs (and on
+    opacity, whose gradient is the same identity on both) against autograd
+    of the plain path on the card, within 1e-4 of each leaf's largest
+    gradient; DEPTH mode gives sh none on both."""
+    dev = _card()
+    cfg, scene, camera = _projection_case(dev, mode, 3)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ref = project(scene, *camera, cfg)
+    cots = [torch.randn(getattr(ref, f).shape, generator=gen, device=dev)
+            for f in (*_PROJ_OUT, "opacity")]
+    want = _projection_grads(scene, camera, cfg, cots, plain=True)
+    got = _projection_grads(scene, camera, cfg, cots, plain=False)
+    for name, a, b in zip(("xyz", "rot", "scale", "opacity", "sh"), got,
+                          want):
+        if b is None:
+            assert a is None and name == "sh" and mode == RenderMode.DEPTH
+            continue
+        scale = float(b.abs().max())
+        assert scale > 0, name
+        assert float((a - b).abs().max()) <= 1e-4 * scale, (mode, name)
+
+
+@pytest.mark.gpu
+def test_project_kernel_counts_and_repeats_bit_for_bit():
+    """One P1 launch and ``project.kernel_splats`` += N per call, one P2
+    per backward; the same scene gives the same gradient bits twice (one
+    thread per splat, no atomics)."""
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import projection as kp
+    from gaussiansplattingviewer_tpu_torch.utils import profiling
+
+    dev = _card()
+    cfg, scene, camera = _projection_case(dev, RenderMode.SH3, 3)
+    n = len(scene)
+    cots = [torch.ones(s, device=dev)
+            for s in ((n, 2), (n,), (n, 3), (n, 2), (n, 3), (n,))]
+    fwd, bwd = kp.project_fwd.launches, kp.project_bwd.launches
+    with profiling.collect() as rec:
+        first = _projection_grads(scene, camera, cfg, cots, plain=False)
+    assert (kp.project_fwd.launches, kp.project_bwd.launches) == (fwd + 1,
+                                                                  bwd + 1)
+    assert rec.counts["project.kernel_splats"] == len(scene)
+    second = _projection_grads(scene, camera, cfg, cots, plain=False)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_project_kernel_reads_strided_cotangents():
+    """P2 takes cotangents of any strides, as autograd hands them over
+    (the packed table's gradient columns, an expanded scalar): the same
+    bits as from contiguous copies."""
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import projection as kp
+
+    dev = _card()
+    cfg, scene, camera = _projection_case(dev, RenderMode.SH3, 3)
+    n = len(scene)
+    rows = torch.randn((n, 16), device=dev)
+    strided = [rows[:, 0:2], rows[:, 11], rows[:, 2:5], rows[:, 9:11],
+               torch.ones((1, 1), device=dev).expand(n, 3)]
+    leaves = [getattr(scene, f) for f in ("xyz", "rot", "scale", "opacity",
+                                          "sh")]
+    got = kp.project_bwd(*leaves, *camera, cfg, strided)
+    want = kp.project_bwd(*leaves, *camera, cfg,
+                          [g.contiguous() for g in strided])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_project_kernel_geometry_is_the_plain_bits():
+    """At a garden-like size and oblique poses, P1's mean2d, depth, conic,
+    radius and valid equal the plain ``_project``'s on the card bit for
+    bit: its view and clip transforms round as the card's GEMM does.  A
+    one-ulp depth moves a splat across a depth-key bucket of binning and
+    reorders it among the splats it overlaps."""
+    from gaussiansplattingviewer_tpu_torch.ops.projection import _project
+
+    dev = _card()
+    cfg = RenderConfig(width=1920, height=1080)
+    scene = random_scene(1 << 20, sh_degree=3, seed=31, extent=4.0,
+                         mean_scale=0.015).to(dev)
+    cam = Camera(h=cfg.height, w=cfg.width)
+    cam.fovy = 1.0
+    with torch.no_grad():
+        for a in (0.3, 1.7, 4.0):
+            eye = np.array([9.0 * np.sin(a), 1.5, 9.0 * np.cos(a)],
+                           np.float32)
+            camera = [torch.as_tensor(m, dtype=torch.float32, device=dev)
+                      for m in (tf.look_at(eye, [0.2, -0.1, 0.3],
+                                           [0, -1, 0]),
+                                cam.get_project_matrix(), eye)]
+            got = project(scene, *camera, cfg)
+            want = _project(scene, *camera, cfg)
+            for f in ("mean2d", "depth", "conic", "radius", "valid"):
+                assert torch.equal(getattr(got, f), getattr(want, f)), (a, f)
