@@ -18,6 +18,11 @@ Two loops, chosen by the mix's ``loop``:
   ``frame_ms_p95`` is the 95th percentile of the frames' times, each read
   from CUDA events around the frame.
 
+The scene, the reference that judges the run and the work counts of its
+roofline come from ``ref``, the reference module the configuration names
+(``cells.Spec.reference``); the program's render settings from the
+configuration's ``"render"``.
+
 ``fault`` plants a fault of the timed path for the tests and the proof
 runs (``FAULTS``); ``control`` puts the reference computed in TF32, the
 next precision below the configuration's float32 with TF32 off, in the
@@ -38,8 +43,6 @@ from gaussiansplattingviewer_tpu_torch.config import RenderConfig
 from gaussiansplattingviewer_tpu_torch.models.gaussians import GaussianData
 from gaussiansplattingviewer_tpu_torch.ops.autotune import autotune
 from gaussiansplattingviewer_tpu_torch.ops.render import render
-from benchmark.reference import splat
-from benchmark.scene import LEAVES, make_scene
 
 FAULTS = {
     "train": ("state_unchanged", "half_batch"),
@@ -108,19 +111,18 @@ class Run:
         self.__dict__.update(kw)
 
 
-def run(config: dict, mix: dict, limits: dict, seed: int, seconds: float,
-        traced: bool, device, t_start: float,
+def run(config: dict, ref, mix: dict, limits: dict, seed: int,
+        seconds: float, traced: bool, device, t_start: float,
         fault: str | None = None) -> Run:
-    """Set up, measure for ``seconds``, then judge against the
-    reference."""
+    """Set up, measure for ``seconds``, then judge against the reference
+    module ``ref``."""
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     width, height = config["width"], config["height"]
-    scene0 = make_scene(config, seed, dev)
+    cfg = RenderConfig(width=width, height=height, **config["render"])
+    scene0 = ref.make_scene(config, seed, dev)
     poses = traffic.orbit(config, mix["poses"], dev)
-    cfg = RenderConfig(width=width, height=height,
-                       grad_fold_bf16=config["grad_fold_bf16"])
     tune = traffic.spread(mix["tune_poses"], len(poses))
     _sync(dev)
     t = time.perf_counter()
@@ -136,15 +138,17 @@ def run(config: dict, mix: dict, limits: dict, seed: int, seconds: float,
             img[:16, :16] += 0.25
         return img
 
-    args = dict(config=config, mix=mix, seed=seed, seconds=seconds,
-                traced=traced, dev=dev, t_start=t_start, poses=poses,
-                frame=frame, fault=fault, scene0=scene0, phases=phases)
+    args = dict(config=config, ref=ref, mix=mix, seed=seed,
+                seconds=seconds, traced=traced, dev=dev, t_start=t_start,
+                poses=poses, frame=frame, fault=fault, scene0=scene0,
+                phases=phases)
     out = _train(**args) if mix["loop"] == "train" else _view(**args)
+    out.work = ref.WORK
     out.autotune_s = autotune_s
     out.phases = phases
     out.route = ("fused K %d" % cfg.prefix_rows) if cfg.fused_grad \
         else "classic"
-    out.n_splats = int(scene0["xyz"].shape[0])
+    out.n_splats = int(scene0[ref.LEAVES[0]].shape[0])
     out.correct, out.checks = judge.verdict(out.checks, limits)
     if out.kind == "view":
         out.failed = sum(g > limits["img_rms"] or g != g for g in out.gaps)
@@ -169,11 +173,12 @@ def _window(step, seconds, traced, dev):
     return n, dt, events
 
 
-def _train(config, mix, seed, seconds, traced, dev, t_start, poses, frame,
-           fault, scene0, phases):
+def _train(config, ref, mix, seed, seconds, traced, dev, t_start, poses,
+           frame, fault, scene0, phases):
+    leaves = ref.LEAVES
     params = {k: a.clone().requires_grad_(True) for k, a in scene0.items()}
     scene = GaussianData(**params)
-    opt = SGD([params[k] for k in LEAVES], [mix["lr"][k] for k in LEAVES],
+    opt = SGD([params[k] for k in leaves], [mix["lr"][k] for k in leaves],
               mix["momentum"], mix["dampening"])
     start = seed % len(poses)
     height = config["height"]
@@ -204,8 +209,8 @@ def _train(config, mix, seed, seconds, traced, dev, t_start, poses, frame,
         phases[f"step {i}"] = time.perf_counter() - t_start
         if i == 0:
             image = img.detach().clone()
-            grad = {k: b.clone() for k, b in zip(LEAVES, opt.buffers())}
-    change = {k: params[k].detach() - p0[k] for k in LEAVES}
+            grad = {k: b.clone() for k, b in zip(leaves, opt.buffers())}
+    change = {k: params[k].detach() - p0[k] for k in leaves}
     _, syncs = _counted_syncs(lambda: step(first), dev)
     done = first + 1
     for i in range(done, done + mix["warmup_steps"]):
@@ -225,12 +230,12 @@ def _train(config, mix, seed, seconds, traced, dev, t_start, poses, frame,
         torch.cuda.empty_cache()
 
     ref_poses = [pose(i) for i in range(first)]
-    r_losses, r_grad, r_final, r_image, stats = splat.train_steps(
+    r_losses, r_grad, r_final, r_image, stats = ref.train_steps(
         p0, ref_poses, mix, config["width"], height)
-    ref = {"losses": r_losses, "grad": r_grad,
-           "change": {k: r_final[k] - p0[k] for k in LEAVES},
-           "image": r_image}
-    checks, leaf_gaps = judge.train_checks(prog, ref, LEAVES)
+    expected = {"losses": r_losses, "grad": r_grad,
+                "change": {k: r_final[k] - p0[k] for k in leaves},
+                "image": r_image}
+    checks, leaf_gaps = judge.train_checks(prog, expected, leaves)
     phases["reference"] = time.perf_counter() - t_ref
     return Run(kind="train", setup_s=setup_s, steps=n, window_s=dt,
                events=events, host_syncs=syncs, memory_peak_bytes=peak,
@@ -239,8 +244,8 @@ def _train(config, mix, seed, seconds, traced, dev, t_start, poses, frame,
                metrics={"train_step_ms": dt / n * 1e3 if n else None})
 
 
-def _view(config, mix, seed, seconds, traced, dev, t_start, poses, frame,
-          fault, scene0, phases):
+def _view(config, ref, mix, seed, seconds, traced, dev, t_start, poses,
+          frame, fault, scene0, phases):
     gd = GaussianData(**scene0)
     # the compared frames: a uniform sample of the window's frames drawn
     # from the seed (reservoir sampling, so only the sample is held)
@@ -292,11 +297,11 @@ def _view(config, mix, seed, seconds, traced, dev, t_start, poses, frame,
     with torch.no_grad():
         for i, img in kept:
             view, proj, cam = poses[i * mix["stride"] % len(poses)]
-            ref, _, st = splat.render(scene0, view, proj, cam,
-                                      config["width"], config["height"])
-            gaps.append(judge.img_rms(img, ref))
+            expected, _, st = ref.render(scene0, view, proj, cam,
+                                         config["width"], config["height"])
+            gaps.append(judge.img_rms(img, expected))
             needed.append(st)
-            del ref
+            del expected
     checks = {"img_rms": max(gaps) if gaps else float("nan")}
     phases["reference"] = time.perf_counter() - t_ref
     return Run(kind="view", setup_s=setup_s, steps=n, window_s=dt,
@@ -312,14 +317,14 @@ def _mean_needed(stats: list[dict]) -> dict | None:
     return {k: sum(s[k] for s in stats) / len(stats) for k in stats[0]}
 
 
-def control(config: dict, mix: dict, limits: dict, seed: int,
+def control(config: dict, ref, mix: dict, limits: dict, seed: int,
             device) -> Run:
-    """The control: the reference computed in TF32 in the program's place,
-    on the inputs a run of ``seed`` makes (its first training steps, or as
-    many frames as a run compares, at poses drawn from the seed), judged as
-    a run is judged."""
+    """The control: the reference module ``ref`` computed in TF32 in the
+    program's place, on the inputs a run of ``seed`` makes (its first
+    training steps, or as many frames as a run compares, at poses drawn
+    from the seed), judged as a run is judged."""
     dev = torch.device(device)
-    scene = make_scene(config, seed, dev)
+    scene = ref.make_scene(config, seed, dev)
     poses = traffic.orbit(config, mix["poses"], dev)
     width, height = config["width"], config["height"]
     if mix["loop"] == "train":
@@ -328,22 +333,23 @@ def control(config: dict, mix: dict, limits: dict, seed: int,
                  for i in range(mix["compared_steps"])]
         sides = []
         for tf32 in (True, False):
-            losses, grad, final, image, _ = splat.train_steps(
+            losses, grad, final, image, _ = ref.train_steps(
                 scene, steps, mix, width, height, tf32=tf32)
             sides.append({"losses": losses, "grad": grad, "image": image,
                           "change": {k: final[k] - scene[k]
-                                     for k in LEAVES}})
+                                     for k in ref.LEAVES}})
             del final
-        checks, leaf_gaps = judge.train_checks(sides[0], sides[1], LEAVES)
+        checks, leaf_gaps = judge.train_checks(sides[0], sides[1],
+                                               ref.LEAVES)
     else:
         rng = np.random.default_rng(seed % (1 << 63))
         gaps = []
         for i in rng.choice(len(poses), mix["compared_frames"],
                             replace=False).tolist():
-            low, _, _ = splat.render(scene, *poses[i], width, height,
-                                     tf32=True)
-            ref, _, _ = splat.render(scene, *poses[i], width, height)
-            gaps.append(judge.img_rms(low, ref))
+            low, _, _ = ref.render(scene, *poses[i], width, height,
+                                   tf32=True)
+            expected, _, _ = ref.render(scene, *poses[i], width, height)
+            gaps.append(judge.img_rms(low, expected))
         checks, leaf_gaps = {"img_rms": max(gaps)}, None
     correct, table = judge.verdict(checks, limits)
     return Run(kind=mix["loop"], correct=correct, checks=table,

@@ -41,16 +41,17 @@ def main(argv=None) -> int:
     w = spec.cell(args.workload)
     config, mix = spec.config(w["config"]), spec.traffic(w["traffic"])
     limits = spec.limits(w["name"])
+    ref = spec.reference(config)
     for mode in args.modes.split(","):
         fault = mode.split(":", 1)[1] if mode.startswith("fault:") else None
         for seed in (int(s) for s in args.seeds.split(",")):
             t0 = time.perf_counter()
             if mode == "control":
-                out = cell.control(config, mix, limits, seed, "cuda")
+                out = cell.control(config, ref, mix, limits, seed, "cuda")
                 line = {}
             else:
-                out = cell.run(config, mix, limits, seed, args.seconds,
-                               False, "cuda", t0, fault=fault)
+                out = cell.run(config, ref, mix, limits, seed,
+                               args.seconds, False, "cuda", t0, fault=fault)
                 line = {"route": out.route, "setup_s": out.setup_s,
                         "metrics": out.metrics, "needed": out.needed}
             line = {"workload": w["name"], "mode": mode, "seed": seed,

@@ -1,5 +1,8 @@
-"""Plain PyTorch reference of the splatting render, its loss gradient and
-the optimizer step: what the benchmark holds the program's timed path to.
+"""Plain PyTorch reference of 3D Gaussian splatting, the primitive that a
+configuration names with ``"reference": "splat"``: the scene, the render,
+its loss gradient and the optimizer step that the benchmark holds the
+program's timed path to, and the work they need (``cells.py`` gives the
+contract of such a module).
 
 It imports nothing of the program and takes nothing the program made: it
 works the projection, the spherical harmonics, the tile binning and the
@@ -28,10 +31,50 @@ group's graph freed before the next, so the garden scene fits.
 ``render`` also counts the fragments the inputs need: those in a row's
 rect, of rows that reach alpha_min somewhere in the tile, while the
 pixel's transmittance is still above 1e-4 (3DGS's per-pixel stop).  The
-benchmark's roofline arithmetic reads that count.
+benchmark's roofline arithmetic reads that count with ``WORK``.
+
+``make_scene`` draws the scene the benchmark hands to both sides, on the
+run's device from the seed.  The distributions are those of the program's
+synthetic scene generator (``models/random_scene.py``), drawn with one
+``torch.Generator`` in a few large calls, so set-up moves no scene over the
+host link:
+
+  xyz      uniform in [-extent, extent]^3
+  rot      normal (w, x, y, z), normalised
+  scale    exp(normal(log(mean_scale), anisotropy)) per axis
+  opacity  uniform [0.2, 0.9], or with ``opacity_mix`` 55% uniform
+           [0.85, 1.0] and the rest Beta(1.2, 3.0)
+  sh       DC uniform [-0.5, 0.5] / C0, the other 45 coefficients
+           normal(0, 0.02)
+
+then padded to a multiple of ``pad_to`` with inert splats (opacity 0 at the
+origin, unit quaternion, scale 1e-9, SH 0), as the program pads.  The same
+seed gives the same scene on the same device.
+
+``WORK`` counts what 3DGS needs, whatever implements it:
+
+* blending: per needed fragment 30 FP32 operations forward (2 offsets, 9
+  for the power, 4 for the rect test, exp, the opacity product, clamp, 2
+  threshold tests, select, weight, 6 for the colour update, 2 for the
+  transmittance) and 73 backward (the forward's 21 up to alpha plus the
+  unclamped test, 2 for the transmittance, the weight, 5 for g.c, the
+  suffix add, 2 for max(1 - alpha, .), the divide, the subtraction, the
+  alpha select, 3 for d power, 2 for the opacity term, 17 for the mean and
+  conic terms, 3 for rgb, 9 adds of the pixel reduction);
+* bytes of the blend: each needed row's 11 attributes read once (44 B)
+  and each pixel's colour and transmittance written once (16 B); the
+  backward also writes 10 floats per row and reads 5 per pixel; a tile
+  holds ``TILE`` squared pixels;
+* projection and SH-3 per splat: 390 FP32 operations forward (mean 18,
+  clip 28, divide 3, rotation 30, scales 3, 3D covariance 48, the fov
+  clamp 4, Jacobian 6, J W 18, 2D covariance 72, conic 7, extents 4, pixel
+  centre 4, direction 12, basis 30, the 16 x 3 products and sums 96,
+  offset and clamp 6) and twice that backward.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -52,6 +95,54 @@ SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
 SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
          0.3731763325901154, -0.4570457994644658, 1.445305721320277,
          -0.5900435899266435)
+WORK = {
+    "frag_flops": 30, "frag_flops_bwd": 73,
+    "row_bytes": 11 * 4, "pixel_bytes": 4 * 4,
+    "row_grad_bytes": 10 * 4, "pixel_grad_bytes": 5 * 4,
+    "pixels_per_tile": TILE * TILE,
+    "splat_flops": 390, "splat_flops_bwd": 2 * 390,
+}
+
+
+def make_scene(cfg: dict, seed: int, device) -> dict:
+    """{leaf: float32 tensor} of ``cfg['n_splats']`` splats, padded."""
+    n, pad_to = cfg["n_splats"], cfg["pad_to"]
+    total = -(-n // pad_to) * pad_to
+    k = 3 * (cfg["sh_degree"] + 1) ** 2
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed % (1 << 63))
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, **f32) * (hi - lo) + lo
+
+    def normal(shape, mean, std):
+        return torch.randn(shape, generator=gen, **f32) * std + mean
+
+    extent = cfg["extent"]
+    xyz = uniform((n, 3), -extent, extent)
+    rot = normal((n, 4), 0.0, 1.0)
+    rot = rot / rot.norm(dim=1, keepdim=True)
+    scale = torch.exp(normal((n, 3), math.log(cfg["mean_scale"]),
+                             cfg["anisotropy"]))
+    if cfg["opacity_mix"]:
+        solid = torch.rand((n, 1), generator=gen, **f32) < 0.55
+        a = torch._standard_gamma(torch.full((n, 1), 1.2, **f32),
+                                  generator=gen)
+        b = torch._standard_gamma(torch.full((n, 1), 3.0, **f32),
+                                  generator=gen)
+        opacity = torch.where(solid, uniform((n, 1), 0.85, 1.0), a / (a + b))
+    else:
+        opacity = uniform((n, 1), 0.2, 0.9)
+    sh = torch.cat([uniform((n, 3), -0.5, 0.5) / SH_C0,
+                    normal((n, k - 3), 0.0, 0.02)], dim=1)
+
+    pad = total - n
+    fill = {"xyz": [0.0] * 3, "rot": [1.0, 0.0, 0.0, 0.0],
+            "scale": [1e-9] * 3, "opacity": [0.0], "sh": [0.0] * k}
+    leaves = dict(zip(LEAVES, (xyz, rot, scale, opacity, sh)))
+    return {name: torch.cat([a, torch.tensor(fill[name], **f32).expand(
+        pad, -1)]) for name, a in leaves.items()}
 
 
 class _RoundTF32(torch.autograd.Function):

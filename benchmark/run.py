@@ -120,7 +120,8 @@ def main(argv=None) -> int:
 
     from benchmark import cell, trace
 
-    out = cell.run(spec.config(cell_spec["config"]),
+    config = spec.config(cell_spec["config"])
+    out = cell.run(config, spec.reference(config),
                    spec.traffic(cell_spec["traffic"]),
                    spec.limits(cell_spec["name"]), args.seed, args.seconds,
                    bool(args.trace), "cuda", T_START)

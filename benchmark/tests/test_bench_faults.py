@@ -22,9 +22,11 @@ CASES = [(w, f) for w in ("garden-train", "garden-view")
 @pytest.mark.parametrize("workload,fault", CASES)
 def test_run_judges_the_timed_path(spec, workload, fault):
     w = spec.cell(workload)
-    out = cell.run(toy(spec.config(w["config"])), spec.traffic(w["traffic"]),
-                   spec.limits(workload), 2**32 + 99, 0.5, False, "cpu",
-                   time.perf_counter(), fault=fault)
+    config = spec.config(w["config"])
+    out = cell.run(toy(config), spec.reference(config),
+                   spec.traffic(w["traffic"]), spec.limits(workload),
+                   2**32 + 99, 0.5, False, "cpu", time.perf_counter(),
+                   fault=fault)
     assert out.correct is (fault is None), out.checks
     assert out.steps > 0 and out.setup_s > 0
     out.trace = None
@@ -40,7 +42,8 @@ def test_run_judges_the_timed_path(spec, workload, fault):
 @pytest.mark.parametrize("workload", ["garden-train", "garden-view"])
 def test_control_comes_out_not_correct(spec, workload):
     w = spec.cell(workload)
-    out = cell.control(toy(spec.config(w["config"])),
+    config = spec.config(w["config"])
+    out = cell.control(toy(config), spec.reference(config),
                        spec.traffic(w["traffic"]), spec.limits(workload),
                        2**31 + 5, "cpu")
     assert not out.correct, out.checks
@@ -48,7 +51,8 @@ def test_control_comes_out_not_correct(spec, workload):
 
 def test_fused_path_is_judged(spec):
     w = spec.cell("garden-train")
-    out = cell.run(toy(spec.config("garden"), dense=True),
+    config = spec.config("garden")
+    out = cell.run(toy(config, dense=True), spec.reference(config),
                    spec.traffic("train"), spec.limits("garden-train"), 7,
                    0.5, False, "cpu", time.perf_counter())
     assert out.route.startswith("fused") and out.correct, out.checks

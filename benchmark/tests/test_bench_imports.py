@@ -27,6 +27,23 @@ def test_sources_import_no_jax():
                 assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
+def test_cell_imports_no_primitive():
+    # the scene, the reference and its work counts reach a run only
+    # through the module its configuration names
+    tree = ast.parse((HERE / "cell.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module] + [f"{node.module}.{a.name}"
+                                     for a in node.names]
+        elif isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        else:
+            continue
+        for name in names:
+            assert not name.startswith(("benchmark.reference",
+                                        "benchmark.scene")), name
+
+
 def test_a_run_loads_no_jax():
     code = (
         "import time, sys\n"
@@ -35,7 +52,8 @@ def test_a_run_loads_no_jax():
         "spec = cells.Spec(ROOT)\n"
         "for w in ('garden-train', 'garden-view'):\n"
         "    c = spec.cell(w)\n"
-        "    cell.run(toy(spec.config(c['config'])),"
+        "    config = spec.config(c['config'])\n"
+        "    cell.run(toy(config), spec.reference(config),"
         " spec.traffic(c['traffic']), spec.limits(w), 5, 0.2, False,"
         " 'cpu', time.perf_counter())\n"
         "print(run.loaded_forbidden())\n")
