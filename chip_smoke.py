@@ -2,9 +2,10 @@
 """Smoke test of the PyTorch/CUDA port (gaussiansplattingviewer_tpu_torch)
 on one CUDA card.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--only surfel]
 
-Phases, each fatal on failure:
+``--only surfel`` runs phases 1 and 9c alone.  Phases, each fatal on
+failure:
   1. card identity (nvidia-smi name and power limit);
   2. build every CUDA kernel from csrc/ (one nvcc per source, started
      together; P1 and P2 from projection.cu among them), print nvcc's
@@ -92,6 +93,16 @@ Phases, each fatal on failure:
      and trained one step through backend="tile" (no blend kernel
      launches, the frame within 5e-4 of the kernel route's), its frame and
      step ms read beside the card's name and power limit;
+ 9c. the 2DGS garden cell (benchmark cell garden-2dgs-view): 5,800,960
+     surfels (phase 9's scene drawn with two scales), SH 3, 1920x1080.
+     The surfel libraries built (ptxas lines; B1s, B2s and B4s resources
+     at tiles 8, 16 and 32); P1s held to the plain ``_project_surfel``
+     (geometry bit for bit, colour within 1e-5) and timed alone; at tiles
+     8, 16 and 32 B1s on the classic table and B4s (inference) on the
+     fused serving path's pass-2 inputs held to their plain versions (T
+     bit for bit, rgb within 1e-5) and timed alone; the autotuned config's
+     three frames through render_with_aux, launching P1s, B1s and (fused)
+     B4s once each per frame;
  10. the JAX repository's measurement entry points as the port's modules,
      each run as a subprocess from the repository's root: ``python -m
      gaussiansplattingviewer_tpu_torch.bench`` with its defaults (the 1M
@@ -108,15 +119,19 @@ Phases, each fatal on failure:
 
 Each blend kernel's bound_ms counts the fragments this run's data needs:
 the pixels inside each blended row's rect (fragments_needed); P1's and
-P2's the bytes they move per splat (281 and 508).  Every phase's launch
-counts include P1 (once per projection, so once per frame or step, under
-every backend) and P2 (once per backward through it).
+P2's the bytes they move per splat (281 and 508); B1s's and B4s's the
+pixels inside the rect where each blended surfel row's alpha can reach
+alpha_min (``surfel_rects``), P1s's the bytes it moves (301 per surfel).
+Every phase's launch counts include P1 (once per projection, so once per
+frame or step, under every backend) and P2 (once per backward through
+it).
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -152,6 +167,13 @@ BLEND_ATTR_BYTES = 11 * 4  # table rows read per splat row (cx .. ry)
 # benchmark/roofline.py's PROJECT_FLOPS counts them; P2 twice that
 PROJECT_FLOPS = 390
 # B4 does B1/B2's fragment work, B5 B3's (csrc/*.cu: template variants)
+# the surfel (2DGS) kernels' work, as benchmark/reference/surfel.py's WORK
+# counts it: FP32 operations per needed fragment of B1s / B4s, bytes of a
+# surfel row (cx, cy, Tu, Tv, Tw, rgb, opacity) and P1s's operations per
+# surfel (its bytes are read off its tensors)
+SURFEL_FLOPS_PER_FRAGMENT = 57
+SURFEL_ATTR_BYTES = 15 * 4
+SURFEL_PROJECT_FLOPS = 351
 
 GOLDEN_DIR = Path(__file__).resolve().parent / "tests" / "goldens"
 GOLDEN_MODES = ("SH1", "SH2", "SH3", "DEPTH", "BILLBOARD", "FLAT_BALL",
@@ -389,12 +411,52 @@ def rows_blended(tile_starts, nproc):
             - s[:-1]).clamp(min=0)
 
 
+def surfel_rects(table, c, alpha_min):
+    """The rects of the surfel rows at table columns ``c``: (x0, x1, y0,
+    y1), the bounding box of the pixels where a row's alpha can reach
+    alpha_min, the union of the low-pass disk rho2d <= thr and the ellipse
+    rho3d <= thr, thr = 2 ln(opacity / alpha_min) (the rect of the
+    kernels' surfel band cull before its room for rounding; the whole
+    plane where rho3d <= thr is no ellipse, empty where thr < 0)."""
+    from gaussiansplattingviewer_tpu_torch.ops import binning as b
+
+    col = lambda k: table[k, c]  # noqa: E731
+    tu = [col(b.COL_TU + k) for k in range(3)]
+    tv = [col(b.COL_TV + k) for k in range(3)]
+    tw = [col(b.COL_TW + k) for k in range(3)]
+    thr = 2.0 * (torch.log(torch.clamp(col(b.COL_OPACITY), min=1e-30))
+                 - float(np.log(alpha_min)))
+    d = thr * (tw[0] * tw[0] + tw[1] * tw[1]) - tw[2] * tw[2]
+    ellipse = d < 0
+    d = torch.where(ellipse, d, -torch.ones_like(d))
+
+    def tdot(p, q):  # sum_k t_k p_k q_k / d, t = (thr, thr, -1)
+        return (thr * (p[0] * q[0] + p[1] * q[1]) - p[2] * q[2]) / d
+
+    mx, my = tdot(tu, tw), tdot(tv, tw)
+    ex = torch.sqrt(torch.clamp(mx * mx - tdot(tu, tu), min=0.0))
+    ey = torch.sqrt(torch.clamp(my * my - tdot(tv, tv), min=0.0))
+    r2 = torch.sqrt(torch.clamp(0.5 * thr, min=0.0))
+    inf = torch.full_like(mx, float("inf"))
+    rect = [torch.minimum(mx - ex, col(b.COL_CX) - r2),
+            torch.maximum(mx + ex, col(b.COL_CX) + r2),
+            torch.minimum(my - ey, col(b.COL_CY) - r2),
+            torch.maximum(my + ey, col(b.COL_CY) + r2)]
+    rect = [torch.where(ellipse, r, -inf if k % 2 == 0 else inf)
+            for k, r in enumerate(rect)]
+    empty = thr < 0
+    return [torch.where(empty, inf if k % 2 == 0 else -inf, r)
+            for k, r in enumerate(rect)]
+
+
 def fragments_needed(table, tile_starts, tile_counts, nproc, cfg,
-                     row_offset=0, local_rows=None, row_stride=1):
+                     row_offset=0, local_rows=None, row_stride=1,
+                     surfel=False):
     """The (pixel, row) fragments a blend needs on this data, for bound_ms:
     for every row a tile blended before its early stop, the tile's pixels
     inside the row's rect, |px - cx| <= rx and |py - cy| <= ry (the
-    kernels' own test: every other fragment has alpha 0 and no gradient).
+    kernels' own test: every other fragment has alpha 0 and no gradient;
+    ``surfel`` rows: ``surfel_rects``).
     Returns (rows, fragments in the rects, fragments of the 64-pixel warp
     bands the kernels' cull keeps: rows of the tile, or at 32x32 8x8
     squares, ``square_bands``), the last for the log only."""
@@ -425,10 +487,16 @@ def fragments_needed(table, tile_starts, tile_counts, nproc, cfg,
     for i in range(0, total, 1 << 22):
         t = tile[i:i + (1 << 22)]
         c = first[i:i + (1 << 22)] + torch.arange(i, i + len(t), device=dev)
-        hx = (xs[t] - table[b.COL_CX, c][:, None]).abs() \
-            <= table[b.COL_RX, c][:, None]
-        hy = (ys[t] - table[b.COL_CY, c][:, None]).abs() \
-            <= table[b.COL_RY, c][:, None]
+        if surfel:
+            x0, x1, y0, y1 = (r[:, None] for r in
+                              surfel_rects(table, c, cfg.alpha_min))
+            hx = (xs[t] >= x0) & (xs[t] <= x1)
+            hy = (ys[t] >= y0) & (ys[t] <= y1)
+        else:
+            hx = (xs[t] - table[b.COL_CX, c][:, None]).abs() \
+                <= table[b.COL_RX, c][:, None]
+            hy = (ys[t] - table[b.COL_CY, c][:, None]).abs() \
+                <= table[b.COL_RY, c][:, None]
         nx = hx.sum(1)
         rect += int((nx * hy.sum(1)).sum())
         if square:
@@ -1161,6 +1229,222 @@ def garden_cell(chk, zero_counts, counts, no_launch):
             "ms_b4_plain": ms_b4_plain, "bound_b4": bound_b4,
             "ms_b5": ms_b5, "ms_b5_plain": ms_b5_plain,
             "bound_b5": (b5[0] / 2, b5[1])}
+
+
+def surfel_cell(chk, zero_counts, counts, no_launch):
+    """Phase 9c: the 2DGS garden cell (benchmark cell garden-2dgs-view):
+    5,800,960 surfels (the garden scene's draw with two scales), SH 3,
+    1920x1080.  Builds P1s and B1s / B2s / B4s (their ptxas lines and
+    resources), holds P1s to the plain ``_project_surfel`` (geometry bit
+    for bit, colour within 1e-5) and B1s and B4s (inference, on the fused
+    serving path's pass-2 inputs) to their plain versions at tiles 8, 16
+    and 32 (T bit for bit, rgb within 1e-5), each timed alone with its
+    bound from the fragments its rows' rects need (``surfel_rects``);
+    then the main path as the cell runs it: the autotuned config, the
+    launch counts of three frames through render_with_aux.  Returns the
+    kernels line's entries as (name, source, key, launches, ms, plain ms,
+    bound)."""
+    from gaussiansplattingviewer_tpu_torch.config import RenderConfig
+    from gaussiansplattingviewer_tpu_torch.config import RenderMode
+    from gaussiansplattingviewer_tpu_torch.models import (
+        GaussianData,
+        random_scene,
+    )
+    from gaussiansplattingviewer_tpu_torch.ops import binning
+    from gaussiansplattingviewer_tpu_torch.ops import fused as fz
+    from gaussiansplattingviewer_tpu_torch.ops.autotune import autotune
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import build
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import projection as kp
+    from gaussiansplattingviewer_tpu_torch.ops.kernels import (
+        tile_raster_fwd as b1,
+    )
+    from gaussiansplattingviewer_tpu_torch.ops.projection import (
+        _project_surfel,
+        project,
+    )
+    from gaussiansplattingviewer_tpu_torch.ops.render import render_with_aux
+    from gaussiansplattingviewer_tpu_torch.utils import transforms as tf
+    from gaussiansplattingviewer_tpu_torch.utils.camera import Camera
+
+    proj_src = "gaussiansplattingviewer_tpu_torch/csrc/projection_surfel.cu"
+    fwd_src = ("gaussiansplattingviewer_tpu_torch/csrc/"
+               "tile_raster_fwd_surfel.cu")
+    sources = ["projection_surfel", "tile_raster_fwd_surfel"]
+    t0 = time.perf_counter()
+    built = build.build(sources)
+    log(f"[surfel] {len(built)} of {len(sources)} built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, info in built.items():
+        log(f"[surfel] {name}: nvcc {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "ptxas" in line:
+                log(f"[surfel]   {line.strip()}")
+    for ts in (8, 16, 32):
+        for key, train, seeded in (("B1s", False, False),
+                                   ("B2s", True, False),
+                                   ("B4s", False, True)):
+            occ = b1.kernel_occupancy(RenderMode.SH3, train=train,
+                                      seeded=seeded, tile_size=ts,
+                                      surfel=True)
+            log(f"[surfel] {key} tile {ts} SH3: {occ['registers']} "
+                f"registers, {occ['local_bytes']} B spilled, "
+                f"{occ['smem_bytes']} B shared per CTA, "
+                f"{occ['ctas_per_sm']} CTAs per SM")
+
+    dev = torch.device(DEVICE)
+    cam = Camera(h=GARDEN_H, w=GARDEN_W)
+    cam.fovy = 1.0
+    eye = np.array([0.0, 0.0, 11.0], np.float32)
+    view = tf.look_at(eye, [0, 0, 0], [0, -1, 0])
+    proj = cam.get_project_matrix()
+    t0 = time.perf_counter()
+    g = random_scene(GARDEN_SPLATS, sh_degree=3, seed=0, extent=6.0,
+                     mean_scale=0.012, anisotropy=1.0, opacity_mix=True)
+    scene = GaussianData(g.xyz, g.rot, g.scale[:, :2].contiguous(),
+                         g.opacity, g.sh).pad_to_multiple(1024).to(dev)
+    del g
+    n = len(scene)
+    log(f"[surfel] scene of {n} surfels made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not scene.surfel:
+        raise AssertionError("the two-scale scene is not a surfel scene")
+    cfg0 = RenderConfig(width=GARDEN_W, height=GARDEN_H)
+    camera = [torch.as_tensor(m, dtype=torch.float32, device=dev)
+              for m in (view, proj, eye)]
+    entries = []
+
+    # P1s against the plain projection, and alone
+    with torch.no_grad():
+        zero_counts()
+        got = project(scene, view, proj, eye, cfg0)
+        launched = counts()
+        if launched != {**no_launch, "P1s": 1}:
+            raise AssertionError(f"project() of surfels launched {launched}")
+        want = _project_surfel(scene, *camera, cfg0)
+        for f in ("mean2d", "depth", "transform", "radius", "valid"):
+            chk.equal("P1s", f"2dgs garden project() {f}", getattr(got, f),
+                      getattr(want, f))
+        chk.close("P1s", "2dgs garden project() color", got.color,
+                  want.color)
+        log(f"[surfel] {int(want.valid.sum())} of {n} surfels valid")
+        del got, want
+        leaves = [getattr(scene, f).contiguous() for f in FIELDS]
+        ms_p1s, outs = cuda_ms(
+            lambda: kp.project_surfel_fwd(*leaves, *camera, cfg0), 10)
+        plain_p1s, _ = host_ms(lambda: _project_surfel(scene, *camera, cfg0))
+    moved = sum(t.numel() * t.element_size() for t in (*leaves, *outs))
+    log(f"[surfel] P1s alone (CUDA events) {ms_p1s:.3f} ms, plain (host "
+        f"clock) {plain_p1s:.3f} ms; {moved / n:.1f} B per surfel")
+    entries.append(("project_surfel_fwd", proj_src, "P1s", 1, ms_p1s,
+                    plain_p1s, bound("P1s", n * SURFEL_PROJECT_FLOPS, moved)))
+    del outs
+
+    # B1s and B4s against their plain versions at each tile size, alone
+    for ts in (8, 16, 32):
+        cfg = cfg0.with_(tile_size=ts)
+        sfx, key = ("", "") if ts == 16 else (f" (tile {ts})", f" t{ts}")
+        ntile, pixels = cfg.num_tiles, ts * ts
+        seg_bytes = (2 * ntile + 1) * 4
+        px, py = b1.tile_pixel_grid(cfg, cfg.tiles_y, device=dev)
+        with torch.no_grad():
+            splats = project(scene, view, proj, eye, cfg)
+            bs = binning.bin_splats(splats, cfg)
+            args = (bs.table, bs.tile_starts, bs.tile_counts, 0, cfg)
+            b1.tile_raster_fwd(*args, surfel=True)  # warm-up
+            ms_b1, (rgb, trans) = cuda_ms(
+                lambda: b1.tile_raster_fwd(*args, surfel=True), 10)
+            ms_plain, (prgb, ptrans, nproc) = host_ms(
+                lambda: b1.blend_tiles_plain(
+                    bs.table, bs.tile_starts[:-1], bs.tile_counts, px, py,
+                    cfg, surfel=True))
+            chk.close(f"B1s{key}", f"2dgs garden tile {ts} B1s rgb", rgb,
+                      prgb)
+            chk.equal(f"B1s{key}", f"2dgs garden tile {ts} B1s T", trans,
+                      ptrans)
+            rows, frags = needed(f"B1s tile {ts}", bs.table, bs.tile_starts,
+                                 bs.tile_counts, nproc, cfg, surfel=True)
+            entries.append((
+                f"tile_raster_fwd (surfel){sfx}", fwd_src, f"B1s{key}", 1,
+                ms_b1, ms_plain,
+                bound(f"B1s tile {ts}", frags * SURFEL_FLOPS_PER_FRAGMENT,
+                      rows * SURFEL_ATTR_BYTES + ntile * pixels * 4 * 4
+                      + seg_bytes)))
+            del bs, args, rgb, trans, prgb, ptrans
+
+            fcfg = cfg.with_(fused_grad=True, prefix_rows=FULL_PREFIX[ts],
+                             residual_budget_rows=FUSED_RESIDUAL_ROWS)
+            pres = binning.bin_splats_presort(splats, fcfg)
+            f = fz._forward(fcfg, fcfg.tiles_y, 1, pres.table_src,
+                            pres.rows_sorted, pres.starts_full, 0,
+                            train=False, surfel=True)
+            del splats, pres
+            seeded = (f["table2"], f["rstarts_c"], f["rcounts"],
+                      f["trans1"], 0, fcfg)
+            b1.tile_raster_fwd_seeded(*seeded, surfel=True)  # warm-up
+            ms_b4, (rgb, trans) = cuda_ms(
+                lambda: b1.tile_raster_fwd_seeded(*seeded, surfel=True), 10)
+            ms_plain, (prgb, ptrans, nproc) = host_ms(
+                lambda: b1.blend_tiles_plain(
+                    f["table2"], f["rstarts_c"][:-1], f["rcounts"], px, py,
+                    fcfg, t_init=f["trans1"], surfel=True))
+            chk.close(f"B4s{key}", f"2dgs garden tile {ts} B4s rgb", rgb,
+                      prgb)
+            chk.equal(f"B4s{key}", f"2dgs garden tile {ts} B4s T", trans,
+                      ptrans)
+            rows, frags = needed(f"B4s tile {ts}", f["table2"],
+                                 f["rstarts_c"], f["rcounts"], nproc, fcfg,
+                                 surfel=True)
+            log(f"[surfel] tile {ts} alone (CUDA events): B1s {ms_b1:.3f} "
+                f"ms, B4s {ms_b4:.3f} ms on pass 2's "
+                f"{int(f['rcounts'].sum())} rows (prefix "
+                f"{fcfg.prefix_rows})")
+            entries.append((
+                f"tile_raster_fwd_seeded (surfel, inference){sfx}", fwd_src,
+                f"B4s{key}", 1, ms_b4, ms_plain,
+                bound(f"B4s tile {ts}", frags * SURFEL_FLOPS_PER_FRAGMENT,
+                      rows * SURFEL_ATTR_BYTES + ntile * pixels * 5 * 4
+                      + seg_bytes)))
+            del f, seeded, rgb, trans, prgb, ptrans
+        torch.cuda.empty_cache()
+
+    # the main path: the cell's autotuned config, three frames
+    t0 = time.perf_counter()
+    cfg = autotune(scene, [view], [proj], [eye], cfg0, probe=True,
+                   fused=None)
+    log(f"[surfel] autotune(probe=True, fused=None) in "
+        f"{time.perf_counter() - t0:.2f} s: fused {cfg.fused_grad}, K "
+        f"{cfg.prefix_rows}, prefix_budget_rows {cfg.prefix_budget_rows}, "
+        f"residual_budget_rows {cfg.residual_budget_rows}, "
+        f"table_budget_rows {cfg.table_budget_rows}")
+    fused = bool(cfg.fused_grad) and cfg.prefix_rows > 0
+    with torch.no_grad():
+        render_with_aux(scene, view, proj, eye, cfg)  # warm-up
+        zero_counts()
+        frame_ms = []
+        for _ in range(3):
+            ms, (img, aux) = host_ms(
+                lambda: render_with_aux(scene, view, proj, eye, cfg))
+            frame_ms.append(ms)
+    got = counts()
+    log(f"[surfel] main path frames {[f'{m:.3f}' for m in frame_ms]} ms, "
+        f"launches {got}, truncated {int(aux['truncated'])}")
+    want = {**no_launch, "B1": 3, "P1s": 3, **({"B4": 3} if fused else {})}
+    if got != want:
+        raise AssertionError(f"2dgs garden frames launched {got}, not {want}")
+    img_np = img.cpu().numpy()
+    if img_np.shape != (GARDEN_H, GARDEN_W, 3) \
+            or not np.isfinite(img_np).all() or not img_np.std() > 0.01:
+        raise AssertionError("2dgs garden frame is not a finite image")
+    for i, e in enumerate(entries):  # the main path's launches
+        if e[1] == proj_src:
+            entries[i] = (*e[:3], got["P1s"], *e[4:])
+        elif e[0] == "tile_raster_fwd (surfel)":
+            entries[i] = (*e[:3], got["B1"], *e[4:])
+        elif e[0] == "tile_raster_fwd_seeded (surfel, inference)":
+            entries[i] = (*e[:3], got["B4"], *e[4:])
+    del scene
+    torch.cuda.empty_cache()
+    return entries
 
 
 def fold_index_add(g, sid, n, fold_bf16):
@@ -2187,7 +2471,12 @@ def bound(name, flops, nbytes):
     return max(ops_ms, bytes_ms), by
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=["surfel"],
+                        help="run phase 1 and this phase alone (surfel: "
+                        "9c) and print their kernels line")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -2228,8 +2517,33 @@ def main() -> int:
     counters = {"B1": b1.tile_raster_fwd, "B2": b1.tile_raster_fwd_train,
                 "B3": b3.tile_raster_bwd, "B4": b1.tile_raster_fwd_seeded,
                 "B5": b3.tile_raster_bwd_fused, "P1": kp.project_fwd,
-                "P2": kp.project_bwd}
+                "P2": kp.project_bwd, "P1s": kp.project_surfel_fwd}
     no_launch = {k: 0 for k in counters}
+    chk = Checks()
+    pallas = "gaussiansplattingviewer_tpu/ops/pallas/"
+
+    def entry(name, src, replaces, key, launches, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": pallas + replaces if replaces else None,
+                "launches": launches,
+                "max_abs_err": chk.err[key], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+    def surfel_entries():
+        # P1s, B1s and B4s replace no Pallas kernel: the JAX package has
+        # no surfels
+        return [entry(name, src, None, *rest) for name, src, *rest
+                in surfel_cell(chk, zero_counts, counts, no_launch)]
+
+    def finish(line):
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        work_dir.cleanup()
+        log(json.dumps(line))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": card,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     def zero_counts():
         for fn in counters.values():
@@ -2248,6 +2562,8 @@ def main() -> int:
     log(f"[card] nvidia-smi: {smi}")
     log(f"[card] torch: {card}, devices {torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if args.only == "surfel":
+        return finish({"kernels": surfel_entries()})
 
     # ---- 2. build (all sources at once)
     kernels = ["tile_raster_fwd", "tile_raster_bwd", "projection"]
@@ -2287,8 +2603,6 @@ def main() -> int:
             log(f"[build] {key} {mode.name}: {occ['registers']} registers, "
                 f"{occ['local_bytes']} B spilled, {occ['smem_bytes']} B "
                 f"shared per CTA, {occ['ctas_per_sm']} CTAs per SM")
-
-    chk = Checks()
 
     # ---- 3. kernels vs plain on the golden scene, every mode
     cam3 = Camera(h=GOLDEN_H, w=GOLDEN_W)
@@ -2561,6 +2875,9 @@ def main() -> int:
     del big
     torch.cuda.empty_cache()
 
+    # ---- 9c. the 2DGS garden cell: P1s, B1s and B4s
+    surfel = surfel_entries()
+
     # ---- 10. the measurement entry points: bench, ply_roundtrip, scaling
     modules_cell(smi)
 
@@ -2568,14 +2885,6 @@ def main() -> int:
     fwd_src = "gaussiansplattingviewer_tpu_torch/csrc/tile_raster_fwd.cu"
     bwd_src = "gaussiansplattingviewer_tpu_torch/csrc/tile_raster_bwd.cu"
     proj_src = "gaussiansplattingviewer_tpu_torch/csrc/projection.cu"
-    pallas = "gaussiansplattingviewer_tpu/ops/pallas/"
-
-    def entry(name, src, replaces, key, launches, ms, plain_ms, bnd):
-        return {"name": name, "route": "cuda", "source": src,
-                "replaces": pallas + replaces if replaces else None,
-                "launches": launches,
-                "max_abs_err": chk.err[key], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
     # B2 and B3 at a tile size, from phase 5 or 5b
     def train_entries(ts):
@@ -2619,15 +2928,9 @@ def main() -> int:
         entry("project_bwd", proj_src, None, "P2", g["counts"]["P2"],
               g["ms_p2"], g["ms_p2_plain"], g["bound_p2"]),
         *per_tile,
+        *surfel,
     ]}
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    work_dir.cleanup()
-    log(json.dumps(line))
-    log(smi)
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": card,
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return finish(line)
 
 
 if __name__ == "__main__":

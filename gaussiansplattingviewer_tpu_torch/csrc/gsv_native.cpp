@@ -102,7 +102,9 @@ int gsv_ply_load(const char* path, int64_t header_bytes, int64_t n,
                  int32_t n_props, const int32_t* col_xyz,  // 3 indices
                  const int32_t* col_dc,                    // 3
                  const int32_t* col_rest,  // sh_rest indices (channel-major)
-                 int32_t sh_rest, const int32_t* col_scale,  // 3
+                 int32_t sh_rest,
+                 const int32_t* col_scale,  // n_scale: 3, or 2 (2DGS)
+                 int32_t n_scale,
                  const int32_t* col_rot,                     // 4
                  int32_t col_opacity, float* xyz, float* rot, float* scale,
                  float* opacity, float* sh) {
@@ -133,7 +135,8 @@ int gsv_ply_load(const char* path, int64_t header_bytes, int64_t n,
       // raw quaternion, log-scale and logit opacity (activated by the
       // caller, util_gau.py:114-121)
       for (int k = 0; k < 4; ++k) rot[i * 4 + k] = r[col_rot[k]];
-      for (int k = 0; k < 3; ++k) scale[i * 3 + k] = r[col_scale[k]];
+      for (int k = 0; k < n_scale; ++k)
+        scale[i * n_scale + k] = r[col_scale[k]];
       opacity[i] = r[col_opacity];
       // SH: dc first, then channel-major f_rest transposed to coeff-major
       float* s = sh + i * sh_dim;

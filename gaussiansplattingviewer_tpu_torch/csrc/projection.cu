@@ -56,6 +56,10 @@
 // the rows loaded through registers instead, 1.32 and 2.74 ms.  The
 // camera (view, proj, position: device pointers, so the caller's device
 // tensors are never read back to the host) is staged once per block.
+//
+// projection_surfel.cu includes this file with GSV_PROJECTION_SURFEL
+// defined, which leaves out the two entry points below, to build kernel
+// P1s (surfels) from the same helpers into a library of its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -787,6 +791,7 @@ Args make_args(const float* xyz, const float* rot, const float* scale,
 
 }  // namespace
 
+#ifndef GSV_PROJECTION_SURFEL
 extern "C" int gsv_project_fwd(
     const float* xyz, const float* rot, const float* scale,
     const float* opacity, const float* sh, int sh_width, int n, int degree,
@@ -820,6 +825,7 @@ extern "C" int gsv_project_bwd(
                          g_scale, g_sh, nullptr, nullptr,
                          static_cast<cudaStream_t>(stream));
 }
+#endif  // GSV_PROJECTION_SURFEL: projection_surfel.cu has its own entry
 
 extern "C" const char* gsv_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

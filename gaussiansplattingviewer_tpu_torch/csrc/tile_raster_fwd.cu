@@ -139,6 +139,22 @@
 // ops/kernels/build.py): the discrete thresholds then see exactly the
 // values the plain PyTorch version computes, and the backward (B3, B5)
 // recomputes B2's alpha and T bit for bit.
+//
+// Surfels (2D Gaussian splatting): tile_raster_fwd_surfel.cu includes this
+// file with GSV_FWD_SURFEL defined, which gives the same entry points (B1s,
+// B2s, B4s) the instantiations of MODE kSurfel in place of the four 3DGS
+// modes, in their own library: a 3DGS render never builds or loads them,
+// and nothing here changes for it.  A surfel row is 15 attributes (cx cy,
+// the rows Tu Tv Tw of its homography, rgb, opacity), staged as four
+// records (Tu cx | Tv cy | Tw op | r g b -); its fragment is the ray-disk
+// intersection of ops/kernels/tile_raster_fwd.py surfel_fragments (p = k
+// x l with k = px Tw - Tu, computed once per row for the thread's column,
+// and l = py Tw - Tv; rho = min(u^2 + v^2, the sigma = sqrt(2)/2 low-pass
+// around (cx, cy)); the near test on the intersection's depth).  A
+// surfel's fragment has no rect; its warp cull (surfel_band_mask) takes
+// the bounding rect of the pixels where alpha can reach alpha_min, widened
+// for rounding, so it is exact as the 3DGS cull is, and the plain version
+// blends every row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -188,12 +204,23 @@ struct Geo {
 constexpr int kCx = 0, kCy = 1, kA = 2, kB = 3, kC = 4;
 constexpr int kR = 5, kG = 6, kBch = 7, kOpacity = 8, kRx = 9, kRy = 10;
 
-enum Mode { kGauss = 0, kBillboard = 1, kFlatBall = 2, kGaussBall = 3 };
+enum Mode { kGauss = 0, kBillboard = 1, kFlatBall = 2, kGaussBall = 3,
+            kSurfel = 4 };
 
-template <int TILE>
+// 16-byte records per staged row: 3 (shape, shape, colour), 4 for surfels
+template <int MODE>
+struct Recs {
+  static constexpr int n = MODE == kSurfel ? 4 : 3;
+};
+
+// surfel rows (ops/binning.py's surfel column map) and the near test
+constexpr int kTu = 2, kTv = 9, kTw = 12, kSurfelAttrs = 15;
+constexpr float kSurfelNear = 0.2f;
+
+template <int TILE, int RECS = 3>
 struct Smem {
   using G = Geo<TILE>;
-  float4 rows[G::kStageRows * 3];        // row j: records 3j (shape) ..
+  float4 rows[G::kStageRows * RECS];     // row j: records RECS j ..
   typename G::Mask mask[G::kStageRows];  // bands each row's rect reaches
 };
 
@@ -280,16 +307,63 @@ __device__ __forceinline__ unsigned band_mask(float cx, float cy, float rx,
   return m;
 }
 
+// Bands whose pixel centres a surfel row can take to alpha_min: alpha >=
+// alpha_min needs rho <= thr = 2 ln(op / alpha_min), which holds only in
+// the low-pass's disk |p - (cx, cy)|^2 <= thr / 2 and in the disk's own
+// ellipse rho3d <= thr, whose centre and half-extents come from its dual
+// conic as the bound's do (projection_surfel.cu, cutoff^2 = thr).  The
+// bands that the bounding rect of both reaches, by band_mask, the rect
+// widened by kSurfelRoom of its extent and coordinates plus 0.1 px for
+// rounding; none where op < alpha_min, every band where the ellipse does
+// not exist (the disk's rho3d = thr circle reaches its plane's horizon).
+constexpr float kSurfelRoom = 1e-3f;
+
+template <int TILE>
+__device__ __forceinline__ unsigned surfel_band_mask(const float* v,
+                                                     float log_alpha_min,
+                                                     float tx, float ty) {
+  constexpr unsigned kAll = (1u << Geo<TILE>::kWarps) - 1u;
+  const float op = v[kOpacity];
+  if (!(op > 0.0f)) return 0u;
+  const float thr = 2.0f * (logf(op) - log_alpha_min);
+  if (thr < 0.0f) return 0u;
+  const float* tu = v + kTu;
+  const float* tv = v + kTv;
+  const float* tw = v + kTw;
+  const float d = thr * (tw[0] * tw[0] + tw[1] * tw[1]) - tw[2] * tw[2];
+  if (!(d < 0.0f)) return kAll;
+  // sum_k t_k p_k q_k / d with t = (thr, thr, -1)
+  auto tdot = [&](const float* p, const float* q) {
+    return (thr * (p[0] * q[0] + p[1] * q[1]) - p[2] * q[2]) / d;
+  };
+  const float mx = tdot(tu, tw), my = tdot(tv, tw);
+  const float ex = sqrtf(fmaxf(mx * mx - tdot(tu, tu), 0.0f));
+  const float ey = sqrtf(fmaxf(my * my - tdot(tv, tv), 0.0f));
+  const float r2 = sqrtf(0.5f * thr);
+  const float x0 = fminf(mx - ex, v[kCx] - r2);
+  const float x1 = fmaxf(mx + ex, v[kCx] + r2);
+  const float y0 = fminf(my - ey, v[kCy] - r2);
+  const float y1 = fmaxf(my + ey, v[kCy] + r2);
+  if (!(x1 - x0 < 1e30f && y1 - y0 < 1e30f)) return kAll;
+  const float rx = 0.5f * (x1 - x0) +
+                   kSurfelRoom * (x1 - x0 + fabsf(x0) + fabsf(x1)) + 0.1f;
+  const float ry = 0.5f * (y1 - y0) +
+                   kSurfelRoom * (y1 - y0 + fabsf(y0) + fabsf(y1)) + 0.1f;
+  return band_mask<TILE>(0.5f * (x0 + x1), 0.5f * (y0 + y1), rx, ry, tx, ty);
+}
+
 // Stage the kStageRows table columns from col0 into shared memory (row j
 // of the stage is column col0 + j; a thread stages rows tid, tid +
 // kThreads, ...; at 32x32 half the threads stage none), each row with its
-// band mask; columns outside the tile's [start, end) get mask 0.
-template <int TILE>
-__device__ __forceinline__ void stage_rows(Smem<TILE>& sm,
+// band mask; columns outside the tile's [start, end) get mask 0.  A surfel
+// row's mask is surfel_band_mask's.
+template <int TILE, int MODE = kGauss>
+__device__ __forceinline__ void stage_rows(Smem<TILE, Recs<MODE>::n>& sm,
                                            const float* __restrict__ table,
                                            int64_t dpad, int col0, int start,
                                            int end, int tid, float tx,
-                                           float ty) {
+                                           float ty,
+                                           float log_alpha_min = 0.0f) {
   using G = Geo<TILE>;
 #pragma unroll
   for (int h = 0; h < G::kStage; ++h) {
@@ -300,17 +374,91 @@ __device__ __forceinline__ void stage_rows(Smem<TILE>& sm,
     const int col = col0 + j;
     unsigned m = 0;
     if (col >= start && col < end) {
-      float v[kAttrs];
+      if constexpr (MODE == kSurfel) {
+        float v[kSurfelAttrs];
 #pragma unroll
-      for (int a = 0; a < kAttrs; ++a) {
-        v[a] = table[static_cast<int64_t>(a) * dpad + col];
+        for (int a = 0; a < kSurfelAttrs; ++a) {
+          v[a] = table[static_cast<int64_t>(a) * dpad + col];
+        }
+        sm.rows[j * 4 + 0] = make_float4(v[kTu], v[kTu + 1], v[kTu + 2],
+                                         v[kCx]);
+        sm.rows[j * 4 + 1] = make_float4(v[kTv], v[kTv + 1], v[kTv + 2],
+                                         v[kCy]);
+        sm.rows[j * 4 + 2] = make_float4(v[kTw], v[kTw + 1], v[kTw + 2],
+                                         v[kOpacity]);
+        sm.rows[j * 4 + 3] = make_float4(v[kR], v[kG], v[kBch], 0.0f);
+        m = surfel_band_mask<TILE>(v, log_alpha_min, tx, ty);
+      } else {
+        float v[kAttrs];
+#pragma unroll
+        for (int a = 0; a < kAttrs; ++a) {
+          v[a] = table[static_cast<int64_t>(a) * dpad + col];
+        }
+        sm.rows[j * 3 + 0] = make_float4(v[kCx], v[kCy], v[kA], v[kB]);
+        sm.rows[j * 3 + 1] = make_float4(v[kC], v[kOpacity], v[kRx], v[kRy]);
+        sm.rows[j * 3 + 2] = make_float4(v[kR], v[kG], v[kBch], 0.0f);
+        m = band_mask<TILE>(v[kCx], v[kCy], v[kRx], v[kRy], tx, ty);
       }
-      sm.rows[j * 3 + 0] = make_float4(v[kCx], v[kCy], v[kA], v[kB]);
-      sm.rows[j * 3 + 1] = make_float4(v[kC], v[kOpacity], v[kRx], v[kRy]);
-      sm.rows[j * 3 + 2] = make_float4(v[kR], v[kG], v[kBch], 0.0f);
-      m = band_mask<TILE>(v[kCx], v[kCy], v[kRx], v[kRy], tx, ty);
     }
     sm.mask[j] = static_cast<typename G::Mask>(m);
+  }
+}
+
+// A surfel row's fragment alphas at the thread's pixels (px, py[i]), in
+// surfel_fragments' expressions and order; k = px Tw - Tu is the
+// column's, computed once.
+__device__ __forceinline__ void surfel_alpha(const float4* row, float px,
+                                             const float (&py)[kPix],
+                                             const Params& prm,
+                                             float (&alpha)[kPix]) {
+  const float4 qu = row[0], qv = row[1], qw = row[2];
+  const float k0 = px * qw.x - qu.x;
+  const float k1 = px * qw.y - qu.y;
+  const float k2 = px * qw.z - qu.z;
+  const float dx = qu.w - px;
+  const float dxdx = dx * dx;
+#pragma unroll
+  for (int i = 0; i < kPix; ++i) {
+    const float l0 = py[i] * qw.x - qv.x;
+    const float l1 = py[i] * qw.y - qv.y;
+    const float l2 = py[i] * qw.z - qv.z;
+    const float p1 = k1 * l2 - k2 * l1;
+    const float p2 = k2 * l0 - k0 * l2;
+    const float p3 = k0 * l1 - k1 * l0;
+    const bool hit = p3 != 0.0f;
+    const float p3s = hit ? p3 : 1.0f;
+    const float u = p1 / p3s;
+    const float v = p2 / p3s;
+    const float rho3d = u * u + v * v;
+    const float dy = qv.w - py[i];
+    const float rho2d = 2.0f * (dxdx + dy * dy);
+    const bool on_disk = rho3d <= rho2d;
+    const float rho = on_disk ? rho3d : rho2d;
+    const float depth = on_disk ? u * qw.x + v * qw.y + qw.z : qw.z;
+    const float power = -0.5f * rho;
+    float a = fminf(prm.alpha_clamp, qw.w * expf(power));
+    const bool keep = hit && depth >= kSurfelNear && power <= 0.0f &&
+                      a >= prm.alpha_min;
+    alpha[i] = keep ? a : 0.0f;
+  }
+}
+
+// Composite one staged surfel row into the thread's pixels.
+__device__ __forceinline__ void blend_row_surfel(const float4* row, float px,
+                                                 const float (&py)[kPix],
+                                                 const Params& prm,
+                                                 float (&T)[kPix],
+                                                 float (&acc)[kPix][3]) {
+  float alpha[kPix];
+  surfel_alpha(row, px, py, prm, alpha);
+  const float4 c = row[3];
+#pragma unroll
+  for (int i = 0; i < kPix; ++i) {
+    const float weight = alpha[i] * T[i];
+    acc[i][0] += weight * c.x;
+    acc[i][1] += weight * c.y;
+    acc[i][2] += weight * c.z;
+    T[i] = T[i] * (1.0f - alpha[i]);
   }
 }
 
@@ -363,7 +511,8 @@ __device__ __forceinline__ void blend_row(const float4* row, float px,
 // Composite the staged rows [j_lo, j_hi) that reach this warp's band, in
 // order (the loop is warp-uniform).
 template <int TILE, int MODE>
-__device__ __forceinline__ void blend_rows(const Smem<TILE>& sm, int j_lo,
+__device__ __forceinline__ void blend_rows(const Smem<TILE, Recs<MODE>::n>& sm,
+                                           int j_lo,
                                            int j_hi, int warp, int lane,
                                            float px, const float (&py)[kPix],
                                            const Params& prm, float (&T)[kPix],
@@ -375,7 +524,11 @@ __device__ __forceinline__ void blend_rows(const Smem<TILE>& sm, int j_lo,
     while (m) {
       const int j = s0 + __ffs(m) - 1;
       m &= m - 1;
-      blend_row<MODE>(&sm.rows[j * 3], px, py, prm, T, acc);
+      if constexpr (MODE == kSurfel) {
+        blend_row_surfel(&sm.rows[j * 4], px, py, prm, T, acc);
+      } else {
+        blend_row<MODE>(&sm.rows[j * 3], px, py, prm, T, acc);
+      }
     }
   }
 }
@@ -394,7 +547,7 @@ __global__ void __launch_bounds__(Geo<TILE>::kThreads, Geo<TILE>::kMinCtas)
     float* __restrict__ ckpt) {
   using G = Geo<TILE>;
   constexpr int kTile = G::kTile, kPixels = G::kPixels;
-  __shared__ Smem<TILE> sm;
+  __shared__ Smem<TILE, Recs<MODE>::n> sm;
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -404,6 +557,8 @@ __global__ void __launch_bounds__(Geo<TILE>::kThreads, Geo<TILE>::kMinCtas)
   const int base = (start / kAlign) * kAlign;
   const int num_chunks = end > start ? (end - base + kChunk - 1) / kChunk : 0;
   const Params prm{alpha_clamp, alpha_min, ball_threshold};
+  // the surfel cull's ln(alpha_min); 3DGS stages no surfel rows
+  const float log_amin = MODE == kSurfel ? logf(alpha_min) : 0.0f;
 
   const float tx = static_cast<float>(t % tiles_x);
   const float ty = static_cast<float>((t / tiles_x) * row_stride + row_offset);
@@ -438,7 +593,8 @@ __global__ void __launch_bounds__(Geo<TILE>::kThreads, Geo<TILE>::kMinCtas)
     if (!__syncthreads_or(live)) break;
     const int w0 = base + ci * kChunk;
     if constexpr (G::kStageRows == kChunk) {
-      stage_rows<TILE>(sm, table, dpad, w0, start, end, tid, tx, ty);
+      stage_rows<TILE, MODE>(sm, table, dpad, w0, start, end, tid, tx, ty,
+                             log_amin);
       __syncthreads();
       const int lo = max(start - w0, 0);
       const int hi = min(end - w0, kChunk);
@@ -468,8 +624,8 @@ __global__ void __launch_bounds__(Geo<TILE>::kThreads, Geo<TILE>::kMinCtas)
         const int jlo = max(lo, b0), jhi = min(hi, b0 + kAlign);
         if (jlo < jhi) {
           __syncwarp();  // the warp is done with the previous block
-          stage_rows<TILE>(sm, table, dpad, w0 + b0, start, end, tid, tx,
-                           ty);
+          stage_rows<TILE, MODE>(sm, table, dpad, w0 + b0, start, end, tid,
+                                 tx, ty, log_amin);
           __syncwarp();
           blend_rows<TILE, MODE>(sm, jlo - b0, jhi - b0, warp, lane, px, py,
                                  prm, T, acc);
@@ -491,10 +647,17 @@ __global__ void __launch_bounds__(Geo<TILE>::kThreads, Geo<TILE>::kMinCtas)
   if (TRAIN && tid == 0) out_nproc[t] = ci;
 }
 
-// Call f(kernel, threads) with the kernel instantiation of this mode.
+// Call f(kernel, threads) with the kernel instantiation of this mode (the
+// surfel library: kSurfel for the SH and DEPTH modes' code 0).
 template <int TILE, bool TRAIN, bool SEEDED, typename F>
 int by_mode(int mode, F&& f) {
   constexpr int n = Geo<TILE>::kThreads;
+#ifdef GSV_FWD_SURFEL
+  if (mode == kGauss) {
+    return f(tile_raster_fwd_kernel<TILE, kSurfel, TRAIN, SEEDED>, n);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+#else
   switch (mode) {
     case kGauss:
       return f(tile_raster_fwd_kernel<TILE, kGauss, TRAIN, SEEDED>, n);
@@ -506,6 +669,7 @@ int by_mode(int mode, F&& f) {
       return f(tile_raster_fwd_kernel<TILE, kGaussBall, TRAIN, SEEDED>, n);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#endif
 }
 
 // ... and of this tile size: 8, 16 or 32, but 16 for B4 train (the fused

@@ -4,7 +4,9 @@ Layout (identical to the JAX package and the reference SSBO contract):
 
   xyz     (N, 3)  float32   world-space means
   rot     (N, 4)  float32   unit quaternions, (w, x, y, z) order
-  scale   (N, 3)  float32   per-axis standard deviations (post-exp)
+  scale   (N, 3)  float32   per-axis standard deviations (post-exp); (N, 2)
+                            for a 2D Gaussian splatting (surfel) scene: the
+                            disk's two tangent scales (s_u, s_v)
   opacity (N, 1)  float32   in (0, 1) (post-sigmoid)
   sh      (N, K)  float32   SH coefficients, K = 3 * (deg+1)^2, interleaved
                             per-coefficient RGB: [c0.rgb, c1.rgb, ...]
@@ -37,6 +39,11 @@ class GaussianData:
         return self.xyz.shape[0]
 
     @property
+    def surfel(self) -> bool:
+        """A 2D Gaussian splatting scene: two scales per splat."""
+        return self.scale.shape[-1] == 2
+
+    @property
     def sh_dim(self) -> int:
         return self.sh.shape[-1]
 
@@ -62,21 +69,27 @@ class GaussianData:
         return self._map(lambda a: a.to(device))
 
     def flat(self) -> torch.Tensor:
-        """(N, 11 + sh_dim) row-major — the reference SSBO layout."""
+        """(N, 11 + sh_dim) row-major — the reference SSBO layout; a surfel
+        scene's rows are one scale narrower, (N, 10 + sh_dim)."""
         return torch.cat(
             [self.xyz, self.rot, self.scale, self.opacity, self.sh], dim=-1
         ).contiguous()
 
     @classmethod
     def from_flat(cls, flat: torch.Tensor, sh_dim: int) -> "GaussianData":
-        if flat.shape[-1] != 11 + sh_dim:
-            raise ValueError(f"flat width {flat.shape[-1]} != 11 + {sh_dim}")
+        """The inverse of ``flat``: 3 scales at width 11 + sh_dim, 2 (a
+        surfel scene) at 10 + sh_dim."""
+        n_scale = flat.shape[-1] - 8 - sh_dim
+        if n_scale not in (2, 3):
+            raise ValueError(f"flat width {flat.shape[-1]} is neither 11 + "
+                             f"{sh_dim} nor 10 + {sh_dim}")
+        s1 = 7 + n_scale
         return cls(
             xyz=flat[:, 0:3],
             rot=flat[:, 3:7],
-            scale=flat[:, 7:10],
-            opacity=flat[:, 10:11],
-            sh=flat[:, 11:],
+            scale=flat[:, 7:s1],
+            opacity=flat[:, s1:s1 + 1],
+            sh=flat[:, s1 + 1:],
         )
 
     def pad_to(self, n: int) -> "GaussianData":
@@ -96,7 +109,7 @@ class GaussianData:
         return GaussianData(
             xyz=_pad(self.xyz, [0.0, 0.0, 0.0]),
             rot=_pad(self.rot, [1.0, 0.0, 0.0, 0.0]),
-            scale=_pad(self.scale, [1e-9, 1e-9, 1e-9]),
+            scale=_pad(self.scale, [1e-9] * self.scale.shape[-1]),
             opacity=_pad(self.opacity, [0.0]),
             sh=_pad(self.sh, [0.0] * self.sh_dim),
         )
@@ -108,6 +121,11 @@ class GaussianData:
     def concat(self, other: "GaussianData") -> "GaussianData":
         if self.sh_dim != other.sh_dim:
             raise ValueError("concat needs equal sh_dim")
+        if self.scale.shape[-1] != other.scale.shape[-1]:
+            raise ValueError(
+                f"concat needs one primitive: {self.scale.shape[-1]} and "
+                f"{other.scale.shape[-1]} scales per splat (3DGS has 3, a "
+                f"2DGS surfel 2)")
         return GaussianData(*(
             torch.cat([getattr(self, f), getattr(other, f)], dim=0)
             for f in _FIELDS

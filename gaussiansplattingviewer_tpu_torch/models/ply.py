@@ -8,6 +8,10 @@ transposed to per-coefficient RGB, ``scale_0..2``, ``rot_0..3``) and the
 same activations at load (L2-normalized quaternions, exp(scale),
 sigmoid(opacity)), computed in numpy so a load gives bit-identical arrays.
 
+A 2D Gaussian splatting PLY (hbb1/2d-gaussian-splatting) has the same
+layout with two scales, ``scale_0`` and ``scale_1``: it loads as a surfel
+scene (``scale`` (N, 2)) and a surfel scene saves as one.
+
 ``load_ply`` reads the standard binary float layout with the port's
 native library (``csrc/gsv_native.cpp`` through ``native/``) and
 anything else, or everything when that library is not available, with
@@ -151,7 +155,7 @@ def _load_ply_native(path, max_sh_degree: int = 3):
         op_idx = col["opacity"]
     except KeyError:
         return None
-    if len(rest_idx) != info.sh_rest or len(scale_idx) != 3 \
+    if len(rest_idx) != info.sh_rest or len(scale_idx) not in (2, 3) \
             or len(rot_idx) != 4:
         return None
     if rest_idx:
@@ -164,7 +168,7 @@ def _load_ply_native(path, max_sh_degree: int = 3):
     n = int(info.n_vertices)
     xyz = np.empty((n, 3), np.float32)
     rot_raw = np.empty((n, 4), np.float32)
-    scale_raw = np.empty((n, 3), np.float32)
+    scale_raw = np.empty((n, len(scale_idx)), np.float32)
     opacity_raw = np.empty((n, 1), np.float32)
     sh = np.empty((n, 3 + info.sh_rest), np.float32)
 
@@ -177,7 +181,8 @@ def _load_ply_native(path, max_sh_degree: int = 3):
     if lib.gsv_ply_load(
             str(path).encode(), info.header_bytes, n, info.n_props,
             i32(xyz_idx), i32(dc_idx), i32(rest_idx), info.sh_rest,
-            i32(scale_idx), i32(rot_idx), op_idx, fptr(xyz), fptr(rot_raw),
+            i32(scale_idx), len(scale_idx), i32(rot_idx), op_idx, fptr(xyz),
+            fptr(rot_raw),
             fptr(scale_raw), fptr(opacity_raw), fptr(sh)) != 0:
         return None
     scale, opacity, rot = _activations(scale_raw, opacity_raw, rot_raw)
@@ -188,7 +193,8 @@ def _load_ply_native(path, max_sh_degree: int = 3):
 
 def load_ply(path: str | os.PathLike, max_sh_degree: int = 3,
              use_native: bool = True):
-    """Load an INRIA 3DGS checkpoint PLY.
+    """Load an INRIA 3DGS checkpoint PLY, or a 2DGS one (two scales: a
+    surfel scene).
 
     Returns ``(GaussianData on the CPU, bbox(2,3), center(3,))`` like the
     reference (util_gau.py:63-125).  SH layout is per-coefficient
@@ -237,6 +243,9 @@ def load_ply(path: str | os.PathLike, max_sh_degree: int = 3,
         sh = dc
 
     scale_names = _numeric_suffix_sorted(names, "scale_")
+    if len(scale_names) not in (2, 3):
+        raise ValueError(f"{len(scale_names)} scale properties: a 3DGS PLY "
+                         f"has 3, a 2DGS PLY 2")
     scale_raw = np.stack([v[nm] for nm in scale_names], axis=1).astype(np.float32)
     rot_names = _numeric_suffix_sorted(names, "rot")
     rot_raw = np.stack([v[nm] for nm in rot_names], axis=1).astype(np.float32)
@@ -269,7 +278,7 @@ def save_ply(scene: GaussianData, path: str | os.PathLike) -> None:
         + [f"f_dc_{i}" for i in range(3)]
         + [f"f_rest_{i}" for i in range(rest_cm.shape[1])]
         + ["opacity"]
-        + [f"scale_{i}" for i in range(3)]
+        + [f"scale_{i}" for i in range(host["scale"].shape[1])]
         + [f"rot_{i}" for i in range(4)]
     )
     cols = np.concatenate(

@@ -72,8 +72,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gsv_ply_load.restype = ctypes.c_int
     lib.gsv_ply_load.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
-        i32p, i32p, i32p, ctypes.c_int32, i32p, i32p, ctypes.c_int32,
-        f32p, f32p, f32p, f32p, f32p,
+        i32p, i32p, i32p, ctypes.c_int32, i32p, ctypes.c_int32, i32p,
+        ctypes.c_int32, f32p, f32p, f32p, f32p, f32p,
     ]
     lib.gsv_write_png_rgb8.restype = ctypes.c_int
     lib.gsv_write_png_rgb8.argtypes = [

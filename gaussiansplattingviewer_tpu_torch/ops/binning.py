@@ -9,7 +9,8 @@ duplicate count:
   1. per-splat tile bbox (``tile_bbox``, same clamps as JAX);
   2. count -> exclusive scan -> expand (``repeat_interleave``) gives one
      candidate per (splat, bbox tile); tight culling drops the candidates
-     whose best pixel alpha is below alpha_min (same formulas as JAX);
+     whose best pixel alpha is below alpha_min (same formulas as JAX;
+     surfels keep every candidate, the blend kernels cull them exactly);
   3. ONE ``torch.sort`` over an int64 key (fused 32-bit (tile | depth)
      key << id_bits) | splat id — the JAX order: tile id high, the top
      ``depth_bits`` of the positive-f32 depth pattern next, the splat id as
@@ -57,6 +58,14 @@ COL_DEPTH = 11
 COL_X0, COL_Y0, COL_W, COL_COUNT = 12, 13, 14, 15
 # columns cx .. opacity: the only ones the blend differentiates
 GRAD_WIDTH = COL_OPACITY + 1
+# A surfel (2DGS) row in the same 16 columns: the rows Tu, Tv, Tw of its
+# homography in place of the conic, the rect and the depth:
+# [cx, cy, Tu0, Tu1, Tu2, r, g, b, opacity, Tv0, Tv1, Tv2, Tw0, Tw1, Tw2,
+#  count] — cx, cy the centre of its 3-sigma ellipse (the low-pass's)
+COL_TU, COL_TV, COL_TW = 2, 9, 12
+# table rows the blend reads: cx .. ry (3DGS), cx .. Tw2 (surfels)
+BLEND_ATTRS = COL_RY + 1
+SURFEL_ATTRS = COL_TW + 3
 
 # the blend reads 256-row windows aligned to 128 rows around each segment
 SEGMENT_ALIGN = 128
@@ -79,6 +88,7 @@ class BinnedSplats:
     num_duplicates: () i32 — rows materialized.
     overflow: () i32 — splats clamped by ``max_tiles_per_gaussian``.
     truncated: () i32 — duplicates dropped by the table budget.
+    surfel: the rows are surfel rows (``pack_table``).
     """
 
     table: torch.Tensor
@@ -87,6 +97,7 @@ class BinnedSplats:
     num_duplicates: torch.Tensor
     overflow: torch.Tensor
     truncated: torch.Tensor
+    surfel: bool = False
 
 
 def _to_int(x: torch.Tensor) -> torch.Tensor:
@@ -160,17 +171,21 @@ def tile_bbox(splats: ProjectedSplats, cfg: RenderConfig, ty_lo: int = 0,
 
 def pack_table(splats: ProjectedSplats) -> torch.Tensor:
     """Per-splat render attributes as (N, TABLE_WIDTH) f32 rows
-    (differentiable).  While recording, their gradient opens span
-    ``project_bwd``."""
+    (differentiable; surfels in the surfel layout).  While recording,
+    their gradient opens span ``project_bwd``."""
     zero = torch.zeros_like(splats.depth)
-    table = torch.stack([
-        splats.mean2d[:, 0], splats.mean2d[:, 1],
-        splats.conic[:, 0], splats.conic[:, 1], splats.conic[:, 2],
-        splats.color[:, 0], splats.color[:, 1], splats.color[:, 2],
-        torch.where(splats.valid, splats.opacity, zero),
-        splats.radius[:, 0], splats.radius[:, 1], splats.depth,
-        zero, zero, zero, zero,
-    ], dim=1).to(torch.float32)
+    head = [splats.mean2d[:, 0], splats.mean2d[:, 1]]
+    shade = [splats.color[:, 0], splats.color[:, 1], splats.color[:, 2],
+             torch.where(splats.valid, splats.opacity, zero)]
+    if splats.surfel:
+        t = splats.transform
+        cols = head + [t[:, k] for k in range(3)] + shade \
+            + [t[:, k] for k in range(3, 9)] + [zero]
+    else:
+        cols = head + [splats.conic[:, k] for k in range(3)] + shade + [
+            splats.radius[:, 0], splats.radius[:, 1], splats.depth,
+            zero, zero, zero, zero]
+    table = torch.stack(cols, dim=1).to(torch.float32)
     if profiling.recording():
         (table,) = profiling.open_in_backward("project_bwd", (table,),
                                               table.device)
@@ -284,7 +299,8 @@ class PresortedBins:
       capacity with dead slots past the last tile).
     starts_full: (num_tiles + 1,) i32 UNCLIPPED segment boundaries into
       rows_sorted (the fused path applies its own budgets).
-    num_duplicates: () i32 live duplicates.  overflow: as in BinnedSplats.
+    num_duplicates: () i32 live duplicates.  overflow, surfel: as in
+    BinnedSplats.
     """
 
     table_src: torch.Tensor
@@ -292,6 +308,7 @@ class PresortedBins:
     starts_full: torch.Tensor
     num_duplicates: torch.Tensor
     overflow: torch.Tensor
+    surfel: bool = False
 
 
 def _sorted_rows(splats: ProjectedSplats, cfg: RenderConfig, row_offset: int,
@@ -305,7 +322,8 @@ def _sorted_rows(splats: ProjectedSplats, cfg: RenderConfig, row_offset: int,
     if local_rows is None:
         local_rows = cfg.tiles_y
     splats = ProjectedSplats(**{
-        f.name: getattr(splats, f.name).detach()
+        f.name: None if getattr(splats, f.name) is None
+        else getattr(splats, f.name).detach()
         for f in dataclasses.fields(splats)})
     dev = splats.depth.device
     n = splats.depth.shape[0]
@@ -321,10 +339,14 @@ def _sorted_rows(splats: ProjectedSplats, cfg: RenderConfig, row_offset: int,
         torch.arange(n, device=dev), count64)
     first = torch.cumsum(count64, 0) - count64  # exclusive scan
     kk = torch.arange(sid.shape[0], device=dev) - first[sid]
+    profiling.count("bin.candidates", sid.shape[0])
     w_s = torch.clamp(w, min=1).to(torch.int64)[sid]
     tx_i = x0.to(torch.int64)[sid] + kk % w_s
     ty_i = y0.to(torch.int64)[sid] + kk // w_s
-    if cfg.tight_culling and int(cfg.mode) != int(RenderMode.BILLBOARD):
+    # surfels keep their rects: the kernels' band cull is exact, and a
+    # per-candidate surfel test cost more than the pairs it dropped
+    if cfg.tight_culling and int(cfg.mode) != int(RenderMode.BILLBOARD) \
+            and not splats.surfel:
         keep = _tight_live(splats, cfg, sid, tx_i, ty_i, row_offset,
                            row_stride)
         sid, tx_i, ty_i = sid[keep], tx_i[keep], ty_i[keep]
@@ -374,6 +396,7 @@ def bin_splats_presort(splats: ProjectedSplats, cfg: RenderConfig,
                                         dtype=torch.int32,
                                         device=sid_sorted.device),
             overflow=overflow,
+            surfel=splats.surfel,
         )
 
 
@@ -399,8 +422,14 @@ def _bin_splats(splats, cfg, row_offset, local_rows, row_stride):
     cap = min(total, budget)
     starts = torch.clamp(starts, max=cap).to(torch.int32)
     counts = starts[1:] - starts[:-1]
-    table = _GatherTableRows.apply(packed, sid_sorted[:cap], pos, offsets,
-                                   cap + TABLE_PAD, bool(cfg.grad_fold_bf16))
+    if splats.surfel and packed.requires_grad:
+        # the fold takes 3DGS columns: autograd gathers surfel rows (CPU)
+        table = torch.nn.functional.pad(packed[sid_sorted[:cap]].T,
+                                        (0, TABLE_PAD))
+    else:
+        table = _GatherTableRows.apply(packed, sid_sorted[:cap], pos,
+                                       offsets, cap + TABLE_PAD,
+                                       bool(cfg.grad_fold_bf16))
     i32 = dict(dtype=torch.int32, device=packed.device)
     return BinnedSplats(
         table=table,
@@ -409,4 +438,5 @@ def _bin_splats(splats, cfg, row_offset, local_rows, row_stride):
         num_duplicates=torch.tensor(cap, **i32),
         overflow=overflow,
         truncated=torch.tensor(max(total - budget, 0), **i32),
+        surfel=splats.surfel,
     )

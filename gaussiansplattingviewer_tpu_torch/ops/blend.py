@@ -99,13 +99,15 @@ def _excl_prefix_prod(one_m):
     return torch.cumprod(shifted, dim=1)
 
 
-def _chunk_steps(table, starts, counts, px, py, trans, cfg: RenderConfig):
+def _chunk_steps(table, starts, counts, px, py, trans, cfg: RenderConfig,
+                 surfel: bool = False):
     """The tile executor's traversal: yields each chunk step of the tiles
     still running as (act, idx, live, rows, frags).
 
     act (A,) the tiles' indices, idx (A, CHUNK) their chunk's table
     columns, live (A, CHUNK) which of them lie before the tile's end, rows
-    (11, A, CHUNK) the attributes cx .. ry (columns past the table's end
+    (11, A, CHUNK) the attributes cx .. ry (``surfel``: (15, A, CHUNK),
+    cx .. Tw2 of a surfel table) (columns past the table's end
     read its last column, dead either way), frags the kernels'
     ``fragments`` of those rows against the tiles' pixels.  A tile runs a
     step while its chunk starts before its end and the largest of its
@@ -118,7 +120,7 @@ def _chunk_steps(table, starts, counts, px, py, trans, cfg: RenderConfig):
     n_tiles, pixels = px.shape
     start = starts[:-1].to(torch.int64)
     end = start + counts.to(torch.int64)
-    attrs = table[: binning.COL_RY + 1]
+    attrs = table[: binning.SURFEL_ATTRS if surfel else binning.BLEND_ATTRS]
     last = table.shape[1] - 1
     lanes = torch.arange(CHUNK, device=dev)
     group = max(1, PLAIN_ELEMS.get(dev.type, 1 << 22) // (CHUNK * pixels))
@@ -140,16 +142,17 @@ def _chunk_steps(table, starts, counts, px, py, trans, cfg: RenderConfig):
             step += 1
 
 
-def _tile_fwd(table, starts, counts, px, py, cfg: RenderConfig):
+def _tile_fwd(table, starts, counts, px, py, cfg: RenderConfig,
+              surfel: bool = False):
     """JAX's ``_blend_tile_fwd`` over every tile: rgb (K, P, 3) and the
-    final transmittance (K, P)."""
+    final transmittance (K, P); ``surfel``: of a surfel table."""
     n_tiles, pixels = px.shape
     rgb = torch.zeros((n_tiles, pixels, 3), dtype=torch.float32,
                       device=table.device)
     trans = torch.ones((n_tiles, pixels), dtype=torch.float32,
                        device=table.device)
     for act, _, _, rows, (_, _, gauss, alpha, _) in _chunk_steps(
-            table, starts, counts, px, py, trans, cfg):
+            table, starts, counts, px, py, trans, cfg, surfel):
         one_m = 1.0 - alpha
         prefix = _excl_prefix_prod(one_m)
         t = trans[act]
@@ -249,11 +252,18 @@ class _TileBlend(torch.autograd.Function):
 def blend_tiles(cfg: RenderConfig, local_rows: int, row_stride: int,
                 table: torch.Tensor, starts: torch.Tensor,
                 counts: torch.Tensor, row_offset: int = 0,
-                use_kernel: bool = True):
+                use_kernel: bool = True, surfel: bool = False):
     """Blend all tiles of the row set {row_offset + s * row_stride}:
     attribute-major (16, Dpad) table -> rgb (T, P, 3), trans (T, P),
     differentiable w.r.t. the table.  ``use_kernel`` picks the kernels
-    (their plain versions for CPU tensors), else the tile executor."""
+    (their plain versions for CPU tensors), else the tile executor.
+    ``surfel``: a surfel table, which no executor has a backward for:
+    autograd differentiates the forwards on the CPU, the card refuses."""
+    grad = torch.is_grad_enabled() and table.requires_grad
+    if surfel and grad and table.device.type != "cpu":
+        raise NotImplementedError("the blend of surfels has no backward "
+                                  "kernel")
+    grad = grad and not surfel
     if not use_kernel:
         px, py = tile_pixel_grid(cfg, local_rows, int(row_offset),
                                  row_stride, device=table.device)
@@ -263,13 +273,13 @@ def blend_tiles(cfg: RenderConfig, local_rows: int, row_stride: int,
             raise ValueError(
                 f"starts {tuple(starts.shape)} / counts "
                 f"{tuple(counts.shape)} do not match {n_tiles} tiles")
-        if torch.is_grad_enabled() and table.requires_grad:
+        if grad:
             return _TileBlend.apply(table, starts, counts, px, py, cfg)
-        return _tile_fwd(table, starts, counts, px, py, cfg)
+        return _tile_fwd(table, starts, counts, px, py, cfg, surfel)
     # grad mode is off inside Function.forward, so the choice of forward
     # kernel is made here
-    if torch.is_grad_enabled() and table.requires_grad:
+    if grad:
         return _BlendTiles.apply(table, starts, counts, cfg, local_rows,
                                  row_stride, row_offset)
     return tile_raster_fwd(table, starts, counts, row_offset, cfg,
-                           local_rows, row_stride)
+                           local_rows, row_stride, surfel)

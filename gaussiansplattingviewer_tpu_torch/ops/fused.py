@@ -116,13 +116,16 @@ def _grad_budget(cfg: RenderConfig, table_rows: int, num_tiles: int) -> int:
 
 
 def _forward(cfg: RenderConfig, local_rows, row_stride, table_src,
-             rows_sorted, starts_full, row_offset, train: bool) -> dict:
+             rows_sorted, starts_full, row_offset, train: bool,
+             surfel: bool = False) -> dict:
     """Both passes of the forward on detached values; ``train`` takes the
     kernels that keep the backward's residuals (B2 and B4's train
-    variant)."""
+    variant); ``surfel`` their surfel variants (B1s, B2s, B4s), whose
+    plain versions autograd differentiates on the CPU."""
     n = table_src.shape[0]
     assert n < (1 << 24), "splat ids must be exact in f32"
-    table_src = table_src.detach()
+    if not surfel:
+        table_src = table_src.detach()
     num_tiles = local_rows * cfg.tiles_x
     cap = rows_sorted.shape[0]
     starts_full = starts_full.to(torch.int64)
@@ -152,9 +155,10 @@ def _forward(cfg: RenderConfig, local_rows, row_stride, table_src,
     args = (row_offset, cfg, local_rows, row_stride)
     if train:
         rgb1, trans1, ckpt1, nproc1 = tile_raster_fwd_train(
-            table1, pstarts_c, pcounts, *args)
+            table1, pstarts_c, pcounts, *args, surfel=surfel)
     else:
-        rgb1, trans1 = tile_raster_fwd(table1, pstarts_c, pcounts, *args)
+        rgb1, trans1 = tile_raster_fwd(table1, pstarts_c, pcounts, *args,
+                                       surfel=surfel)
         ckpt1 = nproc1 = None
     out = dict(table1=table1, pstarts_c=pstarts_c, pcounts=pcounts,
                ckpt1=ckpt1, nproc1=nproc1, rgb1=rgb1, trans1=trans1,
@@ -178,7 +182,7 @@ def _forward(cfg: RenderConfig, local_rows, row_stride, table_src,
                          rows_sorted, rb)
     table2 = _gather_table(table_src, rows2)
     res2 = tile_raster_fwd_seeded(table2, rstarts_c, rcounts, trans1, *args,
-                                  train=train)
+                                  train=train, surfel=surfel)
     if train:
         rgb2, trans2, ckpt2, nproc2 = res2
     else:
@@ -206,7 +210,8 @@ def probe_forward(splats, cfg: RenderConfig):
                          residual_budget_rows=0, grad_budget_rows=0,
                          grad_residual_budget_rows=0)
         f = _forward(cfg0, cfg.tiles_y, 1, pres.table_src,
-                     pres.rows_sorted, pres.starts_full, 0, train=True)
+                     pres.rows_sorted, pres.starts_full, 0, train=True,
+                     surfel=pres.surfel)
         nchunks = _num_chunks(f["pstarts_c"], f["pcounts"])
         processed = (torch.minimum(f["nproc1"].to(torch.int64), nchunks)
                      * KERNEL_CHUNK).to(torch.int32)
@@ -301,22 +306,30 @@ class _BlendFused(torch.autograd.Function):
 
 def blend_fused(cfg: RenderConfig, local_rows: int, row_stride: int,
                 table_src: torch.Tensor, rows_sorted: torch.Tensor,
-                starts_full: torch.Tensor, row_offset: int = 0):
+                starts_full: torch.Tensor, row_offset: int = 0,
+                surfel: bool = False):
     """-> (rgb tiles (T, P, 3), trans tiles (T, P), diag (4,) f32).
 
     diag = [prefix_trunc, residual_trunc, grad_rows_needed,
     grad_rows_dropped]; the gradient entries are filled only under autograd
     with a table that requires grad (an inference forward, B1 + B4 without
-    residuals, reports 0).  Differentiable w.r.t. ``table_src`` only."""
+    residuals, reports 0).  Differentiable w.r.t. ``table_src`` only;
+    ``surfel`` rows (B1s + B4s) have no backward kernel: autograd
+    differentiates their plain versions on the CPU (the gradient entries
+    of diag 0), the card refuses."""
+    grad = torch.is_grad_enabled() and table_src.requires_grad
+    if surfel and grad and table_src.device.type != "cpu":
+        raise NotImplementedError("the blend of surfels has no backward "
+                                  "kernel")
     # grad mode is off inside Function.forward, so the forward's kernels
     # are chosen here
-    if torch.is_grad_enabled() and table_src.requires_grad:
+    if grad and not surfel:
         if table_src.device.type == "cuda":
             # B4 train and B5 take 16 only: refuse before pass 1 launches B2
             check_tile_size(cfg, fused_train=True)
         return _BlendFused.apply(table_src, rows_sorted, starts_full, cfg,
                                  local_rows, row_stride, row_offset)
     f = _forward(cfg, local_rows, row_stride, table_src, rows_sorted,
-                 starts_full, row_offset, train=False)
+                 starts_full, row_offset, train=False, surfel=surfel)
     zero = torch.zeros_like(f["ptrunc"])
     return f["rgb"], f["trans"], _diag(f["ptrunc"], f["rtrunc"], zero, zero)

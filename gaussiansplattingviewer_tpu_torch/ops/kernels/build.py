@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library under ``_build/`` (ignored by
 git) the first time it is needed, and loaded with ``ctypes``.  Libraries
-are named by a hash of their source and flags, so an edited source is
-rebuilt and a stale one is never loaded.
+are named by a hash of their source, the sources it includes from
+``csrc/`` and the flags, so an edited source is rebuilt and a stale one is
+never loaded.
 
 Flags: ``-O3`` and ``-fmad=false``, never ``--use_fast_math``.  The blend's
 alpha_min, power <= 0 and ball thresholds are discrete, so every product
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -48,8 +50,18 @@ def _nvcc() -> str:
     return path
 
 
+def _source_bytes(path: Path) -> bytes:
+    """A source with the sources it includes by ``#include "..."`` from
+    ``csrc/``, recursively (a surfel library includes its 3DGS source)."""
+    src = path.read_bytes()
+    out = [src]
+    for inc in re.findall(rb'^#include "([^"]+)"', src, flags=re.M):
+        out.append(_source_bytes(path.parent / inc.decode()))
+    return b"".join(out)
+
+
 def _lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    src = _source_bytes(SRC_DIR / f"{name}.cu")
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -13,11 +13,20 @@ writes the gradients of xyz, rot, scale and sh, each once.  The header of
 the source says what bounds them (memory: ~236 B read per splat) and what
 the design does about that.
 
+P1s (``project_surfel_fwd``, ``csrc/projection_surfel.cu``, its own
+library, so a 3DGS scene never builds or loads it) is P1 for a surfel
+scene (2D Gaussian splatting, two scales per splat): ``_project``'s culls,
+depth and colour, and in place of the conic the disk's homography T and
+its 3-sigma ellipse's centre and bound (``ops/projection.py``
+``_project_surfel``, the plain version).  It has no backward yet.
+
 Each wrapper takes CUDA tensors only and raises on anything else; there is
 no CPU mode (``ops/projection.py`` runs the plain version for CPU
-tensors).  Launches are counted in ``project_fwd.launches`` and
-``project_bwd.launches``; while recording, each forward adds its splats to
-the counter ``project.kernel_splats``.
+tensors).  Launches are counted in ``project_fwd.launches``,
+``project_bwd.launches`` and ``project_surfel_fwd.launches``; while
+recording, each forward adds its splats to the counter
+``project.kernel_splats`` (``ops/projection.py`` counts a surfel scene's
+in ``project.surfel_splats`` on any device).
 """
 
 from __future__ import annotations
@@ -40,20 +49,24 @@ _IN_TYPES = [_P] * 5 + [_I] * 4 + [_P] * 3 + [_F] * 5 + [_I]
 # then P1: its six outputs and the stream; P2: the five cotangents, the
 # four gradients, the stream
 _ARGTYPES = {"gsv_project_fwd": _IN_TYPES + [_P] * 6 + [_P],
-             "gsv_project_bwd": _IN_TYPES + [_P] * 5 + [_P] * 4 + [_P]}
+             "gsv_project_bwd": _IN_TYPES + [_P] * 5 + [_P] * 4 + [_P],
+             "gsv_project_surfel_fwd": _IN_TYPES + [_P] * 6 + [_P]}
 _LEAF_COLS = {"xyz": 3, "rot": 4, "scale": 3, "opacity": 1}
 _COT_SHAPES = ((2,), (), (3,), (2,), (3,))  # per splat, P1's float outputs
 _FNS: dict = {}
 
 
-def check_inputs(xyz, rot, scale, opacity, sh, view, proj, cam_pos):
+def check_inputs(xyz, rot, scale, opacity, sh, view, proj, cam_pos,
+                 n_scale: int = 3):
     """Raise unless the kernels take these tensors: float32, contiguous,
-    xyz (N, 3), rot (N, 4), scale (N, 3), opacity (N, 1), sh (N, K),
-    view and proj (4, 4), cam_pos (3,), all on one CUDA device."""
+    xyz (N, 3), rot (N, 4), scale (N, n_scale) (3; P1s 2), opacity
+    (N, 1), sh (N, K), view and proj (4, 4), cam_pos (3,), all on one CUDA
+    device."""
     leaves = dict(xyz=xyz, rot=rot, scale=scale, opacity=opacity, sh=sh,
                   view=view, proj=proj, cam_pos=cam_pos)
     n = xyz.shape[0] if xyz.dim() == 2 else -1
     shapes = {k: (n, c) for k, c in _LEAF_COLS.items()}
+    shapes["scale"] = (n, n_scale)
     shapes.update(sh=(n, sh.shape[-1]), view=(4, 4), proj=(4, 4),
                   cam_pos=(3,))
     for name, t in leaves.items():
@@ -89,10 +102,10 @@ def _in_args(xyz, rot, scale, opacity, sh, view, proj, cam_pos,
             int(cfg.clamp_color)]
 
 
-def _launch(symbol, args, dev, what):
-    """Call ``symbol`` on the current stream of ``dev``; its ctypes
-    prototype is set once."""
-    lib = build.load("projection")
+def _launch(symbol, args, dev, what, source="projection"):
+    """Call ``symbol`` of ``csrc/<source>.cu`` on the current stream of
+    ``dev``; its ctypes prototype is set once."""
+    lib = build.load(source)
     fn = _FNS.get((lib._name, symbol))
     if fn is None:
         fn = getattr(lib, symbol)
@@ -157,6 +170,30 @@ def project_bwd(xyz, rot, scale, opacity, sh, view, proj, cam_pos,
 
 
 project_bwd.launches = 0
+
+
+def project_surfel_fwd(xyz, rot, scale, opacity, sh, view, proj, cam_pos,
+                       cfg: RenderConfig):
+    """Kernel P1s: ``_project_surfel``'s mean2d (N, 2), depth (N,),
+    transform (N, 9), radius (N, 2), color (N, 3), all float32, and valid
+    (N,) bool, for a surfel scene (scale (N, 2))."""
+    check_inputs(xyz, rot, scale, opacity, sh, view, proj, cam_pos,
+                 n_scale=2)
+    n, dev = xyz.shape[0], xyz.device
+    outs = [torch.empty((n, c) if c > 1 else (n,), dtype=torch.float32,
+                        device=dev) for c in (2, 1, 9, 2, 3)]
+    valid = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n:
+        _launch("gsv_project_surfel_fwd",
+                _in_args(xyz, rot, scale, opacity, sh, view, proj, cam_pos,
+                         cfg) + [o.data_ptr() for o in (*outs, valid)],
+                dev, "gsv_project_surfel_fwd launch", "projection_surfel")
+        project_surfel_fwd.launches += 1
+        profiling.count("project.kernel_splats", n)
+    return (*outs, valid)
+
+
+project_surfel_fwd.launches = 0
 
 
 class ProjectKernels(torch.autograd.Function):

@@ -33,6 +33,16 @@ JAX package's own limit: its fused path runs only through Pallas
 checkpoint out for 256 pixels (``ops/pallas/tile_raster_fwd.py:334``).
 CUDA tensors at another size raise before any launch; the plain versions
 take any.
+
+Surfel tables (2D Gaussian splatting, ``surfel=True``: the rows
+``binning.pack_table`` writes for a surfel scene) take the same template
+with the ray-disk fragment (``surfel_fragments``) in place of the conic's,
+built as its own library (``csrc/tile_raster_fwd_surfel.cu``), which a
+3DGS render never builds or loads: B1s, B4s and, for the autotuner's
+probe, B2s, at tiles 8, 16 and 32, in SH and DEPTH modes.  Their warp cull
+is a surfel's own (the bounding rect of the pixels its alpha can reach,
+widened for rounding) and exact, so the plain versions blend every surfel
+row and give the same bits.
 """
 
 from __future__ import annotations
@@ -46,6 +56,9 @@ from gaussiansplattingviewer_tpu_torch.ops import binning
 from gaussiansplattingviewer_tpu_torch.ops.kernels import build
 from gaussiansplattingviewer_tpu_torch.ops.raster_oracle import fragment_exp
 
+# a surfel fragment whose ray meets the disk's plane nearer than this is
+# skipped (the official 2DGS rasterizer's near_n)
+SURFEL_NEAR = 0.2
 MODE_CODE = {
     RenderMode.BILLBOARD: 1,
     RenderMode.FLAT_BALL: 2,
@@ -116,11 +129,16 @@ def check_tile_size(cfg, fused_train: bool = False) -> None:
             f"any tile size")
 
 
-def check_inputs(table, starts, counts, cfg, num_tiles, fused_train=False):
+def check_inputs(table, starts, counts, cfg, num_tiles, fused_train=False,
+                 surfel=False):
     """Validate a kernel's table and segments; for CUDA tensors also the
-    tile size (``fused_train``: the fused training kernels' 16)."""
+    tile size (``fused_train``: the fused training kernels' 16); surfel
+    tables blend in the SH and DEPTH modes only."""
     if table.device.type == "cuda":
         check_tile_size(cfg, fused_train)
+    if surfel and cfg.mode in MODE_CODE:
+        raise ValueError(f"surfel tables blend in the SH and DEPTH modes "
+                         f"only, not {cfg.mode.name}")
     if table.dtype != torch.float32 or table.dim() != 2 \
             or table.shape[0] != binning.TABLE_WIDTH:
         raise ValueError(
@@ -159,9 +177,10 @@ def _check_t_init(t_init, table, num_tiles, pixels):
 
 
 def _fwd_cuda(symbol, table, starts, counts, row_offset, cfg: RenderConfig,
-              num_tiles, row_stride, t_init=None, train=False):
-    """Launch one entry point of ``csrc/tile_raster_fwd.cu``: rgb, trans
-    and, with ``train``, ckpt and nproc."""
+              num_tiles, row_stride, t_init=None, train=False, surfel=False):
+    """Launch one entry point of ``csrc/tile_raster_fwd.cu`` (with
+    ``surfel`` of ``csrc/tile_raster_fwd_surfel.cu``): rgb, trans and,
+    with ``train``, ckpt and nproc."""
     dev = table.device
     pixels = cfg.tile_size ** 2
     rgb = torch.empty((num_tiles, pixels, 3), dtype=torch.float32,
@@ -175,7 +194,7 @@ def _fwd_cuda(symbol, table, starts, counts, row_offset, cfg: RenderConfig,
         outs += [ckpt, nproc]
     if num_tiles == 0:
         return tuple(outs)
-    lib = build.load("tile_raster_fwd")
+    lib = build.load(_source(surfel))
     fn = getattr(lib, symbol)
     fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _I,
                    _F, _F, _F, _F] + [_P] * (
@@ -197,13 +216,19 @@ def _fwd_cuda(symbol, table, starts, counts, row_offset, cfg: RenderConfig,
     return tuple(outs)
 
 
+def _source(surfel: bool) -> str:
+    return "tile_raster_fwd_surfel" if surfel else "tile_raster_fwd"
+
+
 def kernel_occupancy(mode: RenderMode, train: bool = False,
-                     seeded: bool = False, tile_size: int = 16) -> dict:
+                     seeded: bool = False, tile_size: int = 16,
+                     surfel: bool = False) -> dict:
     """Resources of the B1 (``train`` False), B2 (``train``) or B4
     (``seeded``, either variant) instantiation for ``mode`` and
-    ``tile_size`` as built: registers and spilled bytes per thread, shared
-    memory per CTA, and CTAs one SM holds at once.  Needs the card."""
-    lib = build.load("tile_raster_fwd")
+    ``tile_size`` as built (``surfel``: B1s, B2s, B4s): registers and
+    spilled bytes per thread, shared memory per CTA, and CTAs one SM holds
+    at once.  Needs the card."""
+    lib = build.load(_source(surfel))
     fn = lib.gsv_tile_raster_fwd_occupancy
     fn.argtypes = [_I, _I, _I, _I] + [ctypes.POINTER(_I)] * 4
     fn.restype = _I
@@ -216,10 +241,12 @@ def kernel_occupancy(mode: RenderMode, train: bool = False,
 
 
 def tile_raster_fwd(table, starts, counts, row_offset, cfg: RenderConfig,
-                    local_rows: int | None = None, row_stride: int = 1):
-    """Kernel B1.  Blend every tile of the row set: attribute-major
-    (16, Dpad) f32 table, starts (T+1,) and counts (T,) int32 -> rgb
-    (T, P, 3) and final transmittance (T, P), both f32.
+                    local_rows: int | None = None, row_stride: int = 1,
+                    surfel: bool = False):
+    """Kernel B1 (``surfel``: B1s, of a surfel table).  Blend every tile
+    of the row set: attribute-major (16, Dpad) f32 table, starts (T+1,)
+    and counts (T,) int32 -> rgb (T, P, 3) and final transmittance
+    (T, P), both f32.
 
     CUDA tensors launch the kernel (one launch, counted in
     ``tile_raster_fwd.launches``); CPU tensors run the plain version.
@@ -227,12 +254,12 @@ def tile_raster_fwd(table, starts, counts, row_offset, cfg: RenderConfig,
     if local_rows is None:
         local_rows = cfg.tiles_y
     num_tiles = local_rows * cfg.tiles_x
-    check_inputs(table, starts, counts, cfg, num_tiles)
+    check_inputs(table, starts, counts, cfg, num_tiles, surfel=surfel)
     if table.device.type == "cpu":
         return tile_raster_fwd_plain(table, starts, counts, row_offset, cfg,
-                                     local_rows, row_stride)
+                                     local_rows, row_stride, surfel)
     out = _fwd_cuda("gsv_tile_raster_fwd", table, starts, counts, row_offset,
-                    cfg, num_tiles, row_stride)
+                    cfg, num_tiles, row_stride, surfel=surfel)
     if num_tiles:
         tile_raster_fwd.launches += 1
     return out
@@ -243,7 +270,7 @@ tile_raster_fwd.launches = 0
 
 def tile_raster_fwd_train(table, starts, counts, row_offset,
                           cfg: RenderConfig, local_rows: int | None = None,
-                          row_stride: int = 1):
+                          row_stride: int = 1, surfel: bool = False):
     """Kernel B2, the training forward: B1's (rgb, trans) plus the
     backward's residuals ckpt (ceil(P / 128), Dpad) f32 and nproc (T,)
     int32.
@@ -255,16 +282,20 @@ def tile_raster_fwd_train(table, starts, counts, row_offset,
     of its tile; other columns stay 0 (at tile 8 also c + 64 .. c + 127).  CUDA tensors launch the kernel (one
     launch, counted in ``tile_raster_fwd_train.launches``); CPU tensors run
     the plain version, which writes the same columns with the same values.
+    ``surfel``: B2s, of a surfel table (the autotuner's probe; no kernel
+    differentiates surfels yet).
     """
     if local_rows is None:
         local_rows = cfg.tiles_y
     num_tiles = local_rows * cfg.tiles_x
-    check_inputs(table, starts, counts, cfg, num_tiles)
+    check_inputs(table, starts, counts, cfg, num_tiles, surfel=surfel)
     if table.device.type == "cpu":
         return tile_raster_fwd_train_plain(table, starts, counts, row_offset,
-                                           cfg, local_rows, row_stride)
+                                           cfg, local_rows, row_stride,
+                                           surfel)
     out = _fwd_cuda("gsv_tile_raster_fwd_train", table, starts, counts,
-                    row_offset, cfg, num_tiles, row_stride, train=True)
+                    row_offset, cfg, num_tiles, row_stride, train=True,
+                    surfel=surfel)
     if num_tiles:
         tile_raster_fwd_train.launches += 1
     return out
@@ -275,7 +306,8 @@ tile_raster_fwd_train.launches = 0
 
 def tile_raster_fwd_seeded(table, starts, counts, t_init, row_offset,
                            cfg: RenderConfig, local_rows: int | None = None,
-                           row_stride: int = 1, train: bool = False):
+                           row_stride: int = 1, train: bool = False,
+                           surfel: bool = False):
     """Kernel B4, the fused path's residual pass: B1 (``train=False``) or
     B2 (``train=True``, adding ckpt and nproc) with each pixel's
     transmittance starting from ``t_init`` (T, P) f32 instead of 1.0;
@@ -284,19 +316,21 @@ def tile_raster_fwd_seeded(table, starts, counts, t_init, row_offset,
 
     CUDA tensors launch the kernel (one launch, counted in
     ``tile_raster_fwd_seeded.launches`` for either variant); CPU tensors
-    run the plain version."""
+    run the plain version.  ``surfel``: B4s, of a surfel table."""
     if local_rows is None:
         local_rows = cfg.tiles_y
     num_tiles = local_rows * cfg.tiles_x
-    check_inputs(table, starts, counts, cfg, num_tiles, fused_train=train)
+    check_inputs(table, starts, counts, cfg, num_tiles, fused_train=train,
+                 surfel=surfel)
     _check_t_init(t_init, table, num_tiles, cfg.tile_size ** 2)
     if table.device.type == "cpu":
         return tile_raster_fwd_seeded_plain(table, starts, counts, t_init,
                                             row_offset, cfg, local_rows,
-                                            row_stride, train)
+                                            row_stride, train, surfel)
     symbol = "gsv_tile_raster_fwd_seeded" + ("_train" if train else "")
     out = _fwd_cuda(symbol, table, starts, counts, row_offset, cfg,
-                    num_tiles, row_stride, t_init=t_init, train=train)
+                    num_tiles, row_stride, t_init=t_init, train=train,
+                    surfel=surfel)
     if num_tiles:
         tile_raster_fwd_seeded.launches += 1
     return out
@@ -307,29 +341,31 @@ tile_raster_fwd_seeded.launches = 0
 
 def tile_raster_fwd_plain(table, starts, counts, row_offset,
                           cfg: RenderConfig, local_rows: int | None = None,
-                          row_stride: int = 1):
+                          row_stride: int = 1, surfel: bool = False):
     """The plain PyTorch version of ``tile_raster_fwd`` (same signature,
     same results up to summation order)."""
     return tile_raster_fwd_seeded_plain(table, starts, counts, None,
                                         row_offset, cfg, local_rows,
-                                        row_stride)
+                                        row_stride, surfel=surfel)
 
 
 def tile_raster_fwd_train_plain(table, starts, counts, row_offset,
                                 cfg: RenderConfig,
                                 local_rows: int | None = None,
-                                row_stride: int = 1):
+                                row_stride: int = 1, surfel: bool = False):
     """The plain PyTorch version of ``tile_raster_fwd_train``: T, ckpt and
     nproc equal the kernel's bit for bit, rgb up to summation order."""
     return tile_raster_fwd_seeded_plain(table, starts, counts, None,
                                         row_offset, cfg, local_rows,
-                                        row_stride, train=True)
+                                        row_stride, train=True,
+                                        surfel=surfel)
 
 
 def tile_raster_fwd_seeded_plain(table, starts, counts, t_init, row_offset,
                                  cfg: RenderConfig,
                                  local_rows: int | None = None,
-                                 row_stride: int = 1, train: bool = False):
+                                 row_stride: int = 1, train: bool = False,
+                                 surfel: bool = False):
     """The plain PyTorch version of ``tile_raster_fwd_seeded`` (T, ckpt
     and nproc bit for bit, rgb up to summation order); ``t_init`` None is
     1.0, the plain B1 / B2."""
@@ -341,7 +377,8 @@ def tile_raster_fwd_seeded_plain(table, starts, counts, t_init, row_offset,
                        dtype=torch.float32, device=table.device) \
         if train else None
     rgb, trans, nproc = blend_tiles_plain(table, starts[:-1], counts, px, py,
-                                          cfg, ckpt=ckpt, t_init=t_init)
+                                          cfg, ckpt=ckpt, t_init=t_init,
+                                          surfel=surfel)
     if train:
         return rgb, trans, ckpt, nproc.to(torch.int32)
     return rgb, trans
@@ -354,7 +391,10 @@ def fragments(rows, live, px, py, cfg: RenderConfig):
     rows: (11, A, R) attributes, live: (A, R), px/py: (A, P).  Returns
     (dx, dy, gauss, alpha, unclamped), each (A, R, P): gauss is all ones
     in billboard mode; unclamped (kept and op * gauss < alpha_clamp, where
-    d alpha / d raw is 1) is None in billboard and ball modes."""
+    d alpha / d raw is 1) is None in billboard and ball modes.  Surfel
+    rows (15 attributes) take ``surfel_fragments``."""
+    if rows.shape[0] == binning.SURFEL_ATTRS:
+        return surfel_fragments(rows, live, px, py, cfg)
     b = binning
     col = lambda c: rows[c][:, :, None]  # noqa: E731  (A, R, 1)
     dx = px[:, None, :] - col(b.COL_CX)
@@ -375,6 +415,48 @@ def fragments(rows, live, px, py, cfg: RenderConfig):
         alpha = (keep & (alpha > cfg.ball_threshold)).to(torch.float32)
         return dx, dy, gauss, alpha, None
     return dx, dy, gauss, alpha, keep & (raw < cfg.alpha_clamp)
+
+
+def surfel_fragments(rows, live, px, py, cfg: RenderConfig):
+    """``fragments`` of surfel rows (15, A, R) (2D Gaussian splatting,
+    the official rasterizer's per-fragment code): at pixel (x, y) the
+    planes k = x Tw - Tu and l = y Tw - Tv meet the disk's plane at p =
+    k x l, skipped where p3 == 0; (u, v) = (p1 / p3, p2 / p3), rho3d =
+    u^2 + v^2 and the low-pass rho2d = 2 |(cx, cy) - (x, y)|^2; rho =
+    min(rho3d, rho2d), power = -rho / 2; skipped where the intersection's
+    depth (u Tw1 + v Tw2 + Tw3 where rho3d <= rho2d, else Tw3) is under
+    SURFEL_NEAR; alpha as 3DGS's.  Returns (None, None, gauss, alpha,
+    unclamped): a surfel has no rect offsets."""
+    b = binning
+    col = lambda c: rows[c][:, :, None]  # noqa: E731  (A, R, 1)
+    x, y = px[:, None, :], py[:, None, :]
+    tu = [col(b.COL_TU + i) for i in range(3)]
+    tv = [col(b.COL_TV + i) for i in range(3)]
+    tw = [col(b.COL_TW + i) for i in range(3)]
+    k = [x * tw[i] - tu[i] for i in range(3)]
+    m = [y * tw[i] - tv[i] for i in range(3)]
+    p1 = k[1] * m[2] - k[2] * m[1]
+    p2 = k[2] * m[0] - k[0] * m[2]
+    p3 = k[0] * m[1] - k[1] * m[0]
+    hit = p3 != 0.0
+    p3 = torch.where(hit, p3, torch.ones_like(p3))
+    u = p1 / p3
+    v = p2 / p3
+    rho3d = u * u + v * v
+    dx = col(b.COL_CX) - x
+    dy = col(b.COL_CY) - y
+    rho2d = 2.0 * (dx * dx + dy * dy)
+    on_disk = rho3d <= rho2d
+    rho = torch.where(on_disk, rho3d, rho2d)
+    depth = torch.where(on_disk, u * tw[0] + v * tw[1] + tw[2], tw[2])
+    power = -0.5 * rho
+    gauss = fragment_exp(power)
+    raw = col(b.COL_OPACITY) * gauss
+    alpha = torch.clamp(raw, max=cfg.alpha_clamp)
+    keep = live[:, :, None] & hit & (depth >= SURFEL_NEAR) \
+        & (power <= 0.0) & (alpha >= cfg.alpha_min)
+    alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
+    return None, None, gauss, alpha, keep & (raw < cfg.alpha_clamp)
 
 
 def square_bands(tile_size: int) -> bool:
@@ -492,7 +574,7 @@ def _put_ckpt(ckpt, cols, t_blk):
 
 
 def blend_tiles_plain(table, start, count, px, py, cfg: RenderConfig,
-                      ckpt=None, t_init=None, cull=False):
+                      ckpt=None, t_init=None, cull=False, surfel=False):
     """Blend any set of tiles: start/count (K,) their table segments,
     px/py (K, P) their pixel centres, t_init (K, P) their entering
     transmittance (None: 1.0).  Returns rgb (K, P, 3), trans (K, P) and
@@ -506,7 +588,9 @@ def blend_tiles_plain(table, start, count, px, py, cfg: RenderConfig,
     writes: the T leaving each 128-row block at the next block's columns,
     where that block holds a live row of the tile.  ``cull`` skips the
     fragments the kernels' warp cull skips (``_blend_window``); the result
-    is the same bits."""
+    is the same bits.  ``surfel``: a surfel table, blended with
+    ``surfel_fragments`` and no cull (the kernels' surfel band cull is
+    exact)."""
     dev = table.device
     K, P = px.shape
     start = start.to(torch.int64)
@@ -518,7 +602,8 @@ def blend_tiles_plain(table, start, count, px, py, cfg: RenderConfig,
         end > start, torch.div(end - base + chunk - 1, chunk,
                                rounding_mode="floor"),
         torch.zeros_like(end))
-    attrs = table[: binning.COL_RY + 1]
+    attrs = table[: binning.SURFEL_ATTRS if surfel else binning.BLEND_ATTRS]
+    cull = cull and not surfel
     rgb = torch.zeros((K, P, 3), dtype=torch.float32, device=dev)
     trans = torch.ones((K, P), dtype=torch.float32, device=dev) \
         if t_init is None else t_init.clone()

@@ -10,6 +10,12 @@ x1.2 scale inflate and baseline-shift disparity.  On a CUDA device
 Frames: p_clip = P @ V @ p_world (math matrices); the image frame is x
 right, y DOWN, origin at the top-left pixel corner; the conic is stored in
 that y-down frame.
+
+A surfel scene (2D Gaussian splatting, ``scale`` (N, 2)) projects to the
+homography T of each disk instead of a conic (``_project_surfel``; on the
+card kernel P1s, ``ops/kernels/projection.py`` ``project_surfel_fwd``).
+Its fragments have no gradient yet: ``project`` raises for a surfel scene
+whose leaves require grad while grad mode is on.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from gaussiansplattingviewer_tpu_torch.config import RenderConfig, RenderMode
 from gaussiansplattingviewer_tpu_torch.models.gaussians import GaussianData
 from gaussiansplattingviewer_tpu_torch.ops.kernels.projection import (
     ProjectKernels,
+    project_surfel_fwd,
 )
 from gaussiansplattingviewer_tpu_torch.ops.sh import eval_sh_color
 from gaussiansplattingviewer_tpu_torch.utils import profiling
@@ -30,6 +37,10 @@ from gaussiansplattingviewer_tpu_torch.utils.transforms import quat_to_rotmat
 
 _PROJ_FIELDS = ("mean2d", "depth", "conic", "radius", "color", "opacity",
                 "valid")
+# 2DGS (Huang et al. 2024, hbb1/diff-surfel-rasterization): the cutoff of
+# the bounding ellipse (3 sigma) and the screen low-pass's sigma
+SURFEL_CUTOFF = 3.0
+SURFEL_FILTER = 0.7071067811865476  # sqrt(2) / 2
 
 
 @dataclasses.dataclass
@@ -44,15 +55,26 @@ class ProjectedSplats:
       color:  (N, 3) RGB (disparity replicated to gray in DEPTH mode).
       opacity:(N,) splat opacity.
       valid:  (N,) bool — in-frustum, non-degenerate, non-padding.
+      transform: (N, 9) of a surfel scene, else None: the rows Tu, Tv, Tw
+              of the homography from the disk's (u, v, 1) to the pixel
+              (x w, y w, w); mean2d is then the centre of the disk's
+              projected 3-sigma ellipse, radius its half-extent (both
+              columns equal) and conic None.
     """
 
     mean2d: torch.Tensor
     depth: torch.Tensor
-    conic: torch.Tensor
+    conic: torch.Tensor | None
     radius: torch.Tensor
     color: torch.Tensor
     opacity: torch.Tensor
     valid: torch.Tensor
+    transform: torch.Tensor | None = None
+
+    @property
+    def surfel(self) -> bool:
+        """Surfels (2DGS): a homography per splat instead of a conic."""
+        return self.transform is not None
 
     @classmethod
     def from_numpy(cls, device="cpu", **arrays) -> "ProjectedSplats":
@@ -154,10 +176,20 @@ def project(scene: GaussianData, view, proj, cam_pos,
     position for the SH view directions.  Matrices may be numpy or tensors;
     they are moved to the scene's device.  A scene on a CUDA device goes
     through kernels P1 and P2 (``ops/kernels/projection.py``), one on the
-    CPU through the plain ``_project``.  Span ``project``; while
-    recording, the scene's gradients close span ``project_bwd``.
+    CPU through the plain ``_project``; a surfel scene through P1s or
+    ``_project_surfel``.  Span ``project``; while recording, the scene's
+    gradients close span ``project_bwd``.  Counter
+    ``project.surfel_splats``: the surfels a surfel scene projects.
     """
+    if scene.surfel:
+        check_surfel_no_grad(scene)
     with profiling.span("project", scene.xyz.device):
+        if scene.surfel:
+            profiling.count("project.surfel_splats", len(scene))
+            if scene.xyz.device.type == "cuda":
+                return _project_surfel_kernel(scene, view, proj, cam_pos,
+                                              cfg)
+            return _project_surfel(scene, view, proj, cam_pos, cfg)
         if profiling.recording():
             scene = GaussianData(*profiling.close_in_backward(
                 "project_bwd", (scene.xyz, scene.rot, scene.scale,
@@ -165,6 +197,156 @@ def project(scene: GaussianData, view, proj, cam_pos,
         if scene.xyz.device.type == "cuda":
             return _project_kernels(scene, view, proj, cam_pos, cfg)
         return _project(scene, view, proj, cam_pos, cfg)
+
+
+def check_surfel_no_grad(scene: GaussianData) -> None:
+    """Raise for a surfel scene on the card that autograd would
+    differentiate: the card has no 2DGS backward kernels, so its render
+    never returns gradients there.  On the CPU autograd differentiates the
+    plain versions (projection and every blend executor)."""
+    if scene.xyz.device.type != "cpu" and torch.is_grad_enabled() and any(
+            getattr(scene, f).requires_grad
+            for f in ("xyz", "rot", "scale", "opacity", "sh")):
+        raise NotImplementedError(
+            "2D Gaussian splatting (a scene with two scales per splat) "
+            "renders on the card without gradients only: 2DGS training is "
+            "not yet ported to its kernels; render under torch.no_grad(), "
+            "detach the leaves or train on the CPU")
+
+
+def _surfel_mode(cfg: RenderConfig) -> int:
+    mode = int(cfg.mode)
+    if mode < int(RenderMode.DEPTH):
+        raise ValueError(
+            f"a surfel (2DGS) scene renders in the SH and DEPTH modes only, "
+            f"not {RenderMode(mode).name}")
+    return mode
+
+
+def _project_surfel_kernel(scene: GaussianData, view, proj, cam_pos,
+                           cfg: RenderConfig) -> ProjectedSplats:
+    f32 = torch.float32
+    dev = scene.xyz.device
+    _surfel_mode(cfg)
+    leaves = [a.to(f32).contiguous() for a in (
+        scene.xyz, scene.rot, scene.scale, scene.opacity, scene.sh)]
+    camera = [torch.as_tensor(m, dtype=f32, device=dev).contiguous()
+              for m in (view, proj, cam_pos)]
+    mean2d, depth, transform, radius, color, valid = project_surfel_fwd(
+        *leaves, *camera, cfg)
+    return ProjectedSplats(mean2d=mean2d, depth=depth, conic=None,
+                           radius=radius, color=color,
+                           opacity=leaves[3][..., 0], valid=valid,
+                           transform=transform)
+
+
+def _surfel_homography(xyz, rot, scale, view, proj, clip, width, height):
+    """The rows Tu, Tv, Tw (N, 3) each of H = M [[s_u r1, s_v r2, mu],
+    [0, 0, 1]]: M maps a world point to (x w, y w, w) in pixels (P V, then
+    the pixel map of ``mean2d``), so H's columns are the images of the
+    disk's two scaled tangent axes (directions, w = 0) and of its centre
+    (``clip``, its clip coordinates).  Kernel P1s computes the same
+    expressions in the same order."""
+    w, x, y, z = rot[:, 0], rot[:, 1], rot[:, 2], rot[:, 3]
+    # the rotation's first two columns, as quat_to_rotmat writes them
+    r1 = (1.0 - 2.0 * (y * y + z * z), 2.0 * (x * y + w * z),
+          2.0 * (x * z - w * y))
+    r2 = (2.0 * (x * y - w * z), 1.0 - 2.0 * (x * x + z * z),
+          2.0 * (y * z + w * x))
+    half_w, half_h = 0.5 * width, 0.5 * height
+
+    def image(d):  # a world direction -> (x w, y w, w)
+        v = [d[0] * view[k, 0] + d[1] * view[k, 1] + d[2] * view[k, 2]
+             for k in range(3)]
+        c = [v[0] * proj[k, 0] + v[1] * proj[k, 1] + v[2] * proj[k, 2]
+             for k in (0, 1, 3)]
+        return (c[0] + c[2]) * half_w, (c[2] - c[1]) * half_h, c[2]
+
+    su, sv = scale[:, 0], scale[:, 1]
+    hu = image([a * su for a in r1])
+    hv = image([a * sv for a in r2])
+    hm = ((clip[:, 0] + clip[:, 3]) * half_w,
+          (clip[:, 3] - clip[:, 1]) * half_h, clip[:, 3])
+    return [torch.stack([hu[k], hv[k], hm[k]], dim=-1) for k in range(3)]
+
+
+def surfel_bound(tu, tv, tw):
+    """The centre (N, 2) and half-extents (N, 2) of the disk's projected
+    3-sigma ellipse, from its dual conic (the official rasterizer's
+    ``compute_aabb``), and whether it exists (d != 0).  Sums are written
+    out left to right, as kernel P1s takes them."""
+    t = (SURFEL_CUTOFF ** 2, SURFEL_CUTOFF ** 2, -1.0)
+
+    def dot(f, p, q):  # sum_k f_k p_k q_k
+        return f[0] * p[:, 0] * q[:, 0] + f[1] * p[:, 1] * q[:, 1] \
+            + f[2] * p[:, 2] * q[:, 2]
+
+    d = dot(t, tw, tw)
+    ok = d != 0.0
+    ds = torch.where(ok, d, torch.ones_like(d))
+    f = [torch.full_like(ds, tk) / ds for tk in t]
+    cx, cy = dot(f, tu, tw), dot(f, tv, tw)
+    hx = cx * cx - dot(f, tu, tu)
+    hy = cy * cy - dot(f, tv, tv)
+    extent = torch.sqrt(torch.clamp(torch.stack([hx, hy], dim=-1),
+                                    min=1e-4))
+    return torch.stack([cx, cy], dim=-1), extent, ok
+
+
+def _project_surfel(scene: GaussianData, view, proj, cam_pos,
+                    cfg: RenderConfig) -> ProjectedSplats:
+    """The plain projection of a surfel scene: the culls, depth, opacity
+    and colour of ``_project`` with the homography T in place of the
+    conic, the 3-sigma ellipse's centre as mean2d and its bound as the
+    radius (ceil(max(extent_x, extent_y, 3 sqrt(2) / 2)))."""
+    f32 = torch.float32
+    dev = scene.xyz.device
+    mode = _surfel_mode(cfg)
+    xyz = scene.xyz.to(f32)
+    n = xyz.shape[0]
+    view = torch.as_tensor(view, dtype=f32, device=dev)
+    proj = torch.as_tensor(proj, dtype=f32, device=dev)
+    cam_pos = torch.as_tensor(cam_pos, dtype=f32, device=dev)
+
+    mean_view = xyz @ view[:3, :3].T + view[:3, 3]
+    pv_h = torch.cat([mean_view, torch.ones((n, 1), dtype=f32, device=dev)],
+                     dim=-1)
+    clip = pv_h @ proj.T
+    w = clip[..., 3]
+    w_safe = torch.where(torch.abs(w) < 1e-8, torch.full_like(w, 1e-8), w)
+    ndc = clip[..., :3] / w_safe[..., None]
+    lim = cfg.ndc_cull_limit
+    in_frustum = torch.all(torch.abs(ndc) <= lim, dim=-1) & (w > 1e-8)
+    not_padding = scene.opacity[..., 0] > 0.0
+
+    scale_mult = cfg.scale_modifier * (
+        cfg.depth_scale_inflate if mode == RenderMode.DEPTH else 1.0)
+    tu, tv, tw = _surfel_homography(
+        xyz, scene.rot.to(f32), scene.scale.to(f32) * scale_mult, view, proj,
+        clip, float(cfg.width), float(cfg.height))
+    center, extent, ok = surfel_bound(tu, tv, tw)
+    r = torch.ceil(torch.maximum(
+        torch.maximum(extent[:, 0], extent[:, 1]),
+        torch.full_like(extent[:, 0], SURFEL_CUTOFF * SURFEL_FILTER)))
+
+    if mode == RenderMode.DEPTH:
+        color = _disparity_color(xyz, view, proj, cfg, ndc)
+    else:
+        dir = xyz - cam_pos
+        norm = torch.linalg.norm(dir, dim=-1, keepdim=True)
+        dir = dir / torch.maximum(norm, torch.full_like(norm, 1e-12))
+        color = eval_sh_color(scene.sh.to(f32), dir, mode,
+                              clamp=cfg.clamp_color)
+    return ProjectedSplats(
+        mean2d=center,
+        depth=-mean_view[..., 2],
+        conic=None,
+        radius=torch.stack([r, r], dim=-1),
+        color=color,
+        opacity=scene.opacity[..., 0].to(f32),
+        valid=in_frustum & ok & not_padding,
+        transform=torch.cat([tu, tv, tw], dim=-1),
+    )
 
 
 def _project_kernels(scene: GaussianData, view, proj, cam_pos,

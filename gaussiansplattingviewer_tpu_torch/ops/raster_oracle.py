@@ -53,9 +53,27 @@ def splat_alpha_color(dx, dy, conic, opacity, color, radius,
     return alpha, color
 
 
+def surfel_alpha_color(rows, px, py, color, cfg: RenderConfig):
+    """``splat_alpha_color`` of a chunk of surfels: rows (15, c) their
+    table attributes cx .. Tw2, px / py (H, W) the pixel centres, color
+    (c, 3).  Returns alpha (c, H, W) and color (c, 1, 1, 3)."""
+    from gaussiansplattingviewer_tpu_torch.ops.kernels.tile_raster_fwd import (
+        surfel_fragments,
+    )
+
+    h, w = px.shape
+    live = torch.ones((1, rows.shape[1]), dtype=torch.bool,
+                      device=rows.device)
+    _, _, _, alpha, _ = surfel_fragments(rows[:, None, :], live,
+                                         px.reshape(1, -1),
+                                         py.reshape(1, -1), cfg)
+    return alpha.reshape(-1, h, w), color[:, None, None, :]
+
+
 def rasterize_oracle(splats: ProjectedSplats, cfg: RenderConfig,
                      chunk: int = 8, return_aux: bool = False):
-    """Blend all splats over the full image, no tiling."""
+    """Blend all splats over the full image, no tiling (surfels with the
+    blend's ray-disk fragments, ``surfel_alpha_color``)."""
     H, W = cfg.height, cfg.width
     dev = splats.depth.device
     depth_key = torch.where(splats.valid, splats.depth,
@@ -64,25 +82,35 @@ def rasterize_oracle(splats: ProjectedSplats, cfg: RenderConfig,
     opacity = torch.where(splats.valid, splats.opacity,
                           torch.zeros_like(splats.opacity))
     mean2d, conic, color, radius, opacity = (
-        a[order] for a in (splats.mean2d, splats.conic, splats.color,
-                           splats.radius, opacity)
+        None if a is None else a[order]
+        for a in (splats.mean2d, splats.conic, splats.color, splats.radius,
+                  opacity)
     )
     px = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
     py = torch.arange(H, dtype=torch.float32, device=dev) + 0.5
+    if splats.surfel:
+        from gaussiansplattingviewer_tpu_torch.ops import binning
+
+        rows = binning.pack_table(splats)[order].T[:binning.SURFEL_ATTRS]
+        grid_y, grid_x = torch.meshgrid(py, px, indexing="ij")
     rgb = torch.zeros((H, W, 3), dtype=torch.float32, device=dev)
     T = torch.ones((H, W), dtype=torch.float32, device=dev)
     for s in range(0, order.shape[0], chunk):
-        m = mean2d[s:s + chunk]
-        dx = px[None, None, :] - m[:, 0, None, None]  # (c, 1, W)
-        dy = py[None, :, None] - m[:, 1, None, None]  # (c, H, 1)
-        a, c = splat_alpha_color(
-            dx, dy,
-            conic[s:s + chunk, None, None, :],
-            opacity[s:s + chunk, None, None],
-            color[s:s + chunk, None, None, :],
-            radius[s:s + chunk, None, None, :],
-            cfg,
-        )
+        if splats.surfel:
+            a, c = surfel_alpha_color(rows[:, s:s + chunk], grid_x,
+                                      grid_y, color[s:s + chunk], cfg)
+        else:
+            m = mean2d[s:s + chunk]
+            dx = px[None, None, :] - m[:, 0, None, None]  # (c, 1, W)
+            dy = py[None, :, None] - m[:, 1, None, None]  # (c, H, 1)
+            a, c = splat_alpha_color(
+                dx, dy,
+                conic[s:s + chunk, None, None, :],
+                opacity[s:s + chunk, None, None],
+                color[s:s + chunk, None, None, :],
+                radius[s:s + chunk, None, None, :],
+                cfg,
+            )
         one_m = 1.0 - a
         shifted = torch.cat([torch.ones_like(one_m[:1]), one_m[:-1]], dim=0)
         prefix = torch.cumprod(shifted, dim=0)

@@ -37,8 +37,9 @@ def debug_counters(splats: ProjectedSplats, img):
     """cfg.debug sanitizer counters: valid splats with non-finite projected
     fields, and non-finite output pixels."""
     finite = torch.ones_like(splats.valid)
+    shape = splats.transform if splats.surfel else splats.conic
     for field in (
-        splats.mean2d, splats.conic, splats.color, splats.radius,
+        splats.mean2d, shape, splats.color, splats.radius,
         splats.depth[:, None], splats.opacity[:, None],
     ):
         finite = finite & torch.all(torch.isfinite(field), dim=-1)
@@ -64,14 +65,14 @@ def rasterize_tiles(splats: ProjectedSplats, cfg: RenderConfig,
         if fused:
             rgb_tiles, trans_tiles, diag = blend_fused(
                 cfg, cfg.tiles_y, 1, binned.table_src, binned.rows_sorted,
-                binned.starts_full, 0)
+                binned.starts_full, 0, binned.surfel)
             truncated = (diag[0] + diag[1]).to(torch.int32)
             extra = {"grad_rows_needed": diag[2],
                      "grad_rows_dropped": diag[3]}
         else:
             rgb_tiles, trans_tiles = blend_tiles(
                 cfg, cfg.tiles_y, 1, binned.table, binned.tile_starts,
-                binned.tile_counts, 0, use_kernel,
+                binned.tile_counts, 0, use_kernel, binned.surfel,
             )
             truncated, extra = binned.truncated, {}
         img, trans = _tiles_to_image(rgb_tiles, trans_tiles, cfg)

@@ -401,7 +401,12 @@ def _render_band(scene: GaussianData, view, proj, cam_pos, cfg: RenderConfig,
     3) in local order, background composited; with ``return_aux`` also
     {"kept": splats the band's compaction kept, "dropped": splats past a
     budget, "num_duplicates", "truncated", "overflow"}, each a () tensor.
+    A surfel (2DGS) scene is refused: the band programs carry 3DGS rows.
     """
+    if scene.surfel:
+        raise NotImplementedError(
+            "the sharded render takes 3DGS scenes only; render a surfel "
+            "(2DGS) scene with ops.render.render")
     if idx is None:
         idx = dist.get_rank(group)
     idx = int(idx)
